@@ -1,0 +1,81 @@
+"""Dispatch layer over the interpolation kernels (counterpart of
+``repro/kernels/ops.py``).
+
+``make_interp`` returns an ``Interp`` executor that implements the
+solver-wide interpolation protocol::
+
+    interp(fields, disp)             fields (..., N1,N2,N3) at x + disp
+    interp.make_plan(disp)           -> InterpPlan (precomputed operators)
+    interp.apply_plan(fields, plan)  planned apply
+
+``method`` picks the implementation:
+
+* ``"auto"`` (the default): the CUDA kernel for CUDA tensors, the plain
+  version for CPU tensors.  There is no shape condition and no fallback:
+  a CUDA tensor launches its kernel or the call raises.
+* ``"cuda"``: the CUDA kernel; a CPU tensor raises.
+* ``"ref"``: the plain PyTorch version on any device.  Tests and
+  ``chip_smoke.py`` use it to hold the kernels against.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.tricubic import tricubic_apply_cuda, tricubic_displace_many_cuda
+
+METHODS = ("auto", "cuda", "ref")
+
+
+def _use_kernel(method: str, t: torch.Tensor) -> bool:
+    """True for the CUDA kernel, False for the plain version."""
+    if method == "ref":
+        return False
+    if method == "auto":
+        return t.device.type == "cuda"
+    if method == "cuda":
+        if t.device.type != "cuda":
+            raise ValueError(f"interp method 'cuda' needs CUDA tensors, got device {t.device}")
+        return True
+    raise ValueError(f"unknown interp method {method!r}; expected one of {METHODS}")
+
+
+def tricubic_displace_many(
+    fields: torch.Tensor, disp: torch.Tensor, *, method: str = "auto"
+) -> torch.Tensor:
+    """``fields`` (..., N1,N2,N3) at x + ``disp`` (3, N1,N2,N3), grid units;
+    leading dims are channels sharing one weight construction / one launch."""
+    if not _use_kernel(method, fields):
+        return ref.tricubic_displace_many(fields, disp)
+    shape3 = tuple(fields.shape[-3:])
+    out = tricubic_displace_many_cuda(
+        fields.reshape((-1,) + shape3).contiguous(), disp.contiguous()
+    )
+    return out.reshape(fields.shape)
+
+
+class Interp:
+    """Plan-aware single-device interpolation executor (see module docstring)."""
+
+    def __init__(self, method: str = "auto"):
+        if method not in METHODS:
+            raise ValueError(f"unknown interp method {method!r}; expected one of {METHODS}")
+        self.method = method
+
+    def __call__(self, fields: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+        return tricubic_displace_many(fields, disp, method=self.method)
+
+    def make_plan(self, disp: torch.Tensor) -> ref.InterpPlan:
+        return ref.make_interp_plan(disp)
+
+    def apply_plan(self, fields: torch.Tensor, plan: ref.InterpPlan) -> torch.Tensor:
+        if not _use_kernel(self.method, fields):
+            return ref.interp_apply(fields, plan)
+        shape3 = tuple(fields.shape[-3:])
+        out = tricubic_apply_cuda(fields.reshape((-1,) + shape3).contiguous(), plan)
+        return out.reshape(fields.shape)
+
+
+def make_interp(method: str = "auto") -> Interp:
+    """Factory for the solver's ``interp=`` slots."""
+    return Interp(method=method)

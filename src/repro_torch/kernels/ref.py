@@ -1,0 +1,144 @@
+"""Plain PyTorch versions of the interpolation kernels.
+
+Tricubic **Lagrange** interpolation on a periodic grid (paper §III-C2):
+64 coefficients (4^3) per point, exact for cubic polynomials and at grid
+points.  Coordinates are in grid-index units (voxel i sits at coordinate
+i); periodic wrap is index arithmetic, so any displacement is exact.
+Counterpart of ``repro/kernels/ref.py``.
+
+These functions are what the CUDA kernels of ``kernels/tricubic.py`` are
+held against on the card, and what ``kernels/ops.py`` runs for tensors on
+the CPU:
+
+* ``interp_apply(fields, plan)`` is the plain version of the planned apply
+  (``tricubic_apply_cuda``);
+* ``tricubic_displace_many(fields, disp)`` is the plain version of the
+  batched displace (``tricubic_displace_many_cuda``).
+
+The gathers run over chunks of ``CHUNK`` points, so that a 256^3 call keeps
+its (4, 4, 4, chunk) index and value blocks to a few GiB on the card.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+# points per gather chunk: (4,4,4,CHUNK) int64 indices are 2 GiB at 2^22
+CHUNK = 1 << 22
+
+
+def lagrange_weights(t: torch.Tensor) -> torch.Tensor:
+    """Cubic Lagrange weights for stencil offsets (-1, 0, 1, 2) at frac t.
+
+    Returns shape (4, *t.shape); rows sum to 1 for any t.
+    """
+    t = t.to(torch.promote_types(t.dtype, torch.float32))
+    w_m1 = -t * (t - 1.0) * (t - 2.0) / 6.0
+    w_0 = (t + 1.0) * (t - 1.0) * (t - 2.0) / 2.0
+    w_1 = -(t + 1.0) * t * (t - 2.0) / 2.0
+    w_2 = (t + 1.0) * t * (t - 1.0) / 6.0
+    return torch.stack([w_m1, w_0, w_1, w_2])
+
+
+class InterpPlan(NamedTuple):
+    """Cached per-point interpolation operators for one displacement field.
+
+    ``ib``        (3, N1, N2, N3) int32: ``floor(disp)``, the stencil base
+                  offset from each point's home voxel.
+    ``w``         (3, 4, N1, N2, N3) float32: separable cubic Lagrange
+                  weights at the fractional part ``disp - ib``.
+    ``halo_need`` () float32: ``ceil(max |disp|)``.
+    """
+
+    ib: torch.Tensor
+    w: torch.Tensor
+    halo_need: torch.Tensor
+
+
+def make_interp_plan(disp: torch.Tensor) -> InterpPlan:
+    """Precompute the tricubic operators for ``disp`` (3, N1, N2, N3)."""
+    d = disp.to(torch.promote_types(disp.dtype, torch.float32))
+    ibf = torch.floor(d)
+    w = torch.movedim(lagrange_weights(d - ibf), 0, -4)  # (3, 4, N..)
+    return InterpPlan(
+        ib=ibf.to(torch.int32),
+        w=w.contiguous(),
+        halo_need=torch.ceil(torch.max(torch.abs(d))),
+    )
+
+
+def _gather_contract(flat_fields, base, w, shape3):
+    """Chunked 64-point gather + separable contraction.
+
+    ``flat_fields`` (C, Ntot) on a periodic ``shape3`` grid; ``base`` (3, M)
+    integer stencil bases (the offset -1 row sits at ``base - 1``); ``w``
+    (3, 4, M) weights.  Returns (C, M).  The contraction order is the
+    oracle's: stencil axis 1, then axis 2, then axis 3.
+    """
+    n1, n2, n3 = shape3
+    c, m = flat_fields.shape[0], base.shape[1]
+    out = torch.empty((c, m), dtype=flat_fields.dtype, device=flat_fields.device)
+    offs = torch.arange(-1, 3, dtype=torch.int64, device=base.device)
+    for lo in range(0, m, CHUNK):
+        hi = min(lo + CHUNK, m)
+        b = base[:, lo:hi].to(torch.int64)
+        i1 = torch.remainder(b[0][None, :] + offs[:, None], n1)  # (4, M)
+        i2 = torch.remainder(b[1][None, :] + offs[:, None], n2)
+        i3 = torch.remainder(b[2][None, :] + offs[:, None], n3)
+        idx = (
+            i1[:, None, None, :] * (n2 * n3) + i2[None, :, None, :] * n3 + i3[None, None, :, :]
+        ).reshape(-1)
+        del i1, i2, i3
+        w0, w1, w2 = w[0, :, lo:hi], w[1, :, lo:hi], w[2, :, lo:hi]
+        for ci in range(c):
+            vals = flat_fields[ci][idx].reshape(4, 4, 4, hi - lo)
+            s = torch.sum(vals * w0[:, None, None, :], dim=0)  # (4, 4, M)
+            s = torch.sum(s * w1[:, None, :], dim=0)  # (4, M)
+            out[ci, lo:hi] = torch.sum(s * w2, dim=0)
+    return out
+
+
+def _home(shape3, device) -> torch.Tensor:
+    """(3, M) int32 home voxel index of every grid point, row-major."""
+    axes = [torch.arange(n, dtype=torch.int32, device=device) for n in shape3]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=0).reshape(3, -1)
+
+
+def interp_apply(fields: torch.Tensor, plan: InterpPlan) -> torch.Tensor:
+    """Evaluate ``fields`` (..., N1,N2,N3) at the planned departure points.
+
+    Leading dims are channels sharing one gather-index computation;
+    periodic wrap by index arithmetic (valid for any displacement).
+    """
+    shape3 = tuple(plan.ib.shape[-3:])
+    lead = fields.shape[:-3]
+    ff = fields.reshape(-1, shape3[0] * shape3[1] * shape3[2])
+    acc = torch.promote_types(torch.promote_types(fields.dtype, plan.w.dtype), torch.float32)
+    base = _home(shape3, fields.device) + plan.ib.reshape(3, -1)
+    w = plan.w.reshape(3, 4, -1).to(acc)
+    out = _gather_contract(ff.to(acc), base, w, shape3)
+    return out.reshape(lead + shape3).to(fields.dtype)
+
+
+def tricubic_displace_many(fields: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+    """Batched semi-Lagrangian form: ``fields`` (..., N1,N2,N3) at x + disp."""
+    return interp_apply(fields, make_interp_plan(disp))
+
+
+def tricubic_points(field: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Interpolate ``field`` (N1,N2,N3) at ``coords`` (3, *Q), grid units."""
+    acc = torch.promote_types(torch.promote_types(field.dtype, coords.dtype), torch.float32)
+    qshape = coords.shape[1:]
+    q = coords.reshape(3, -1).to(acc)
+    i0 = torch.floor(q)
+    w = torch.movedim(lagrange_weights(q - i0), 0, 1)  # (3, 4, M)
+    out = _gather_contract(field.reshape(1, -1).to(acc), i0.to(torch.int64), w, field.shape)
+    return out.reshape(qshape).to(field.dtype)
+
+
+def tricubic_displace(field: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+    """Evaluate ``field`` (N1,N2,N3) at ``x_i + disp_i``; disp (3, N1,N2,N3)."""
+    ct = torch.promote_types(disp.dtype, torch.float32)
+    base = _home(field.shape, field.device).to(ct).reshape((3,) + tuple(field.shape))
+    return tricubic_points(field, base + disp.to(ct))

@@ -1,0 +1,187 @@
+"""Minimal telemetry for the port: spans, counters, and the ``newton_iter``
+and ``solve`` records of ``repro.telemetry``'s schema v1 (same field names,
+so ``repro.analysis.trace_report`` reads the port's traces).
+
+Off by default: with no sink installed a span reads no clock and does not
+synchronise, and ``emit`` builds no record.  A sink is any object with a
+``write(record: dict)`` method; ``ListSink`` keeps records in memory.
+"""
+from __future__ import annotations
+
+import dataclasses
+import numbers
+import time
+from typing import Any, ClassVar
+
+import torch
+
+SCHEMA_VERSION = 1
+
+_SINKS: list[Any] = []
+_COUNTERS: dict[str, float] = {}
+
+
+class ListSink:
+    """Keeps every record; a context manager installs and removes it."""
+
+    def __init__(self):
+        self.records: list[dict] = []
+
+    def write(self, record: dict) -> None:
+        self.records.append(record)
+
+    def __enter__(self) -> "ListSink":
+        add_sink(self)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        remove_sink(self)
+
+
+def add_sink(sink: Any) -> Any:
+    _SINKS.append(sink)
+    return sink
+
+
+def remove_sink(sink: Any) -> None:
+    if sink in _SINKS:
+        _SINKS.remove(sink)
+
+
+def _clean(x):
+    """JSON-ready copy: tensors and numpy scalars become Python numbers."""
+    if isinstance(x, dict):
+        return {str(k): _clean(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_clean(v) for v in x]
+    if isinstance(x, bool) or x is None or isinstance(x, (str, int, float)):
+        return x
+    if isinstance(x, numbers.Integral):
+        return int(x)
+    if isinstance(x, numbers.Real):
+        return float(x)
+    if hasattr(x, "tolist"):
+        return _clean(x.tolist())
+    return str(x)
+
+
+@dataclasses.dataclass
+class Event:
+    kind: ClassVar[str] = ""
+
+    def to_record(self) -> dict:
+        rec = {"v": SCHEMA_VERSION, "ts": time.time(), "kind": self.kind}
+        for f in dataclasses.fields(self):
+            rec[f.name] = _clean(getattr(self, f.name))
+        return rec
+
+
+@dataclasses.dataclass
+class SpanEvent(Event):
+    kind: ClassVar[str] = "span"
+    name: str
+    wall_s: float
+    attrs: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class NewtonIterEvent(Event):
+    """One Newton iteration of ``gn.solve``."""
+
+    kind: ClassVar[str] = "newton_iter"
+    source: str
+    beta: float
+    iter: int
+    j_val: Any
+    misfit: Any
+    reg: Any
+    gnorm: Any
+    rel_gnorm: Any
+    cg_iters: Any
+    step_len: Any
+    armijo_trials: int = 0
+    wall_s: float | None = None
+    level: int | None = None
+    subjects: int = 0
+    active: Any = None
+
+
+@dataclasses.dataclass
+class CounterEvent(Event):
+    kind: ClassVar[str] = "counter"
+    name: str
+    value: float
+    total: float
+    attrs: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class SolveEvent(Event):
+    """End-of-solve summary: the meters ``gn.solve`` returns."""
+
+    kind: ClassVar[str] = "solve"
+    source: str
+    newton_iters: Any
+    hessian_matvecs: Any
+    fine_equiv_matvecs: Any = None
+    precond_fine_equiv_matvecs: Any = None
+    compiled_executables: int | None = None
+    wall_s: float | None = None
+
+
+def emit(event: Event, echo: bool = False) -> dict | None:
+    """Send ``event`` to every sink; ``echo=True`` also prints the record."""
+    if not _SINKS and not echo:
+        return None
+    rec = event.to_record()
+    for s in _SINKS:
+        s.write(rec)
+    if echo:
+        print(rec)
+    return rec
+
+
+def counter(name: str, value: float = 1.0, **attrs) -> float:
+    """Add ``value`` to a named process-wide total and emit a CounterEvent."""
+    total = _COUNTERS.get(name, 0.0) + float(value)
+    _COUNTERS[name] = total
+    emit(CounterEvent(name=name, value=float(value), total=total, attrs=attrs))
+    return total
+
+
+class span:
+    """Host wall-clock span: ``with telemetry.span("gn.newton_iter") as sp``.
+
+    With a sink installed, the exit synchronises ``device`` (when it is a
+    CUDA device) before reading the clock, so the span holds the device
+    time of its work; ``sp.wall_s`` then holds the seconds.  Without a sink
+    it does nothing and ``wall_s`` stays ``None``.
+    """
+
+    __slots__ = ("name", "attrs", "device", "wall_s", "_t0")
+
+    def __init__(self, name: str, device=None, **attrs):
+        self.name = name
+        self.attrs = attrs
+        self.device = None if device is None else torch.device(device)
+        self.wall_s: float | None = None
+        self._t0: float | None = None
+
+    def _sync(self) -> None:
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def __enter__(self) -> "span":
+        if not _SINKS:
+            return self
+        self._sync()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._t0 is None or exc_type is not None:
+            return False
+        self._sync()
+        self.wall_s = time.perf_counter() - self._t0
+        emit(SpanEvent(name=self.name, wall_s=self.wall_s, attrs=self.attrs))
+        return False

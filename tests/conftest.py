@@ -31,6 +31,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: subprocess-spawning or minutes-long test")
     config.addinivalue_line("markers", "dist: exercises the multi-device repro.dist path")
+    config.addinivalue_line("markers", "gpu: needs a CUDA card (tests/test_torch_cuda.py)")
 
 
 def run_multidevice(body: str, devices: int = 8, timeout: int = 520) -> str:
