@@ -1,0 +1,165 @@
+"""What building the tricubic kernels without FMA contraction costs.
+
+The port builds its kernels with ``-fmad=false`` (the rounding contract at
+the head of ``src/repro_torch/kernels/csrc/tricubic.cu``: kernel and plain
+version round alike, so the V-cycle solve takes the same PCG iterations on
+either).  This script builds the library twice from the checkout's sources,
+with the port's flags and with ``-fmad=true`` in their place, and times the
+three tricubic kernels from both libraries in one process:
+
+* K1 ``tricubic_apply_cuda`` at C=2 and C=3 (transport steps and Hessian
+  matvecs),
+* K2 ``tricubic_displace_many_cuda`` at C=3 (the RK2 departure solve),
+* K3 ``tricubic_displace_cuda`` (one field through a deformation).
+
+Rounds alternate the order of the two libraries (A B, B A, ...); each
+timing is CUDA events over ``--reps`` launches after two warm-up launches.
+The inputs are random fields and a smooth periodic displacement of at most
+``--max-disp`` voxels, made on the card from ``--seed``.  Each variant's
+output is also compared with the plain version on the same inputs.
+
+    PYTHONPATH=src python3 bench_torch/fmad_ab.py [--n 256] [--rounds 6]
+
+Prints the card's name and power limit, one JSON line per round and a last
+JSON line with each variant's median ms, the ratio of the medians, the
+registers ``ptxas`` gave each kernel, and the max abs error against the
+plain version.  Needs one CUDA card and ``nvcc``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import re
+import statistics
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from repro_torch.kernels import build, ref, tricubic
+
+VARIANTS = {
+    "fmad_false": build.NVCC_FLAGS,
+    "fmad_true": tuple("-fmad=true" if f == "-fmad=false" else f for f in build.NVCC_FLAGS),
+}
+SYMBOLS = ("apply_kernel", "displace_kernel", "field_warp_kernel")
+
+
+def _registers(log: str) -> dict:
+    """Registers per kernel from a ``-Xptxas -v`` report (mangled names carry
+    the symbol length-prefixed, so ``apply_kernel`` is not ``..._apply_kernel``)."""
+    regs, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = next((s for s in SYMBOLS if f"{len(s)}{s}" in m.group(1)), None)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            regs[current] = int(m.group(1))
+    return regs
+
+
+def _time_ms(fn, reps: int) -> float:
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _smooth_disp(n: int, max_disp: float, gen: torch.Generator, dev) -> torch.Tensor:
+    """(3, n, n, n): a few periodic low modes scaled to ``max_disp`` voxels."""
+    x = torch.arange(n, device=dev, dtype=torch.float32) * (2 * math.pi / n)
+    x1, x2, x3 = torch.meshgrid(x, x, x, indexing="ij")
+    ph = torch.rand((3, 3), generator=gen, device=dev) * (2 * math.pi)
+    d = torch.stack([
+        torch.sin(x2 + ph[i, 0]) * torch.cos(x3 + ph[i, 1]) + 0.5 * torch.sin(2 * x1 + ph[i, 2])
+        for i in range(3)
+    ])
+    return (d * (max_disp / d.abs().max())).contiguous()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=256)
+    ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--max-disp", type=float, default=8.0)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("fmad_ab: torch.cuda.is_available() is False; this needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed",
+          flush=True)
+
+    with ThreadPoolExecutor(max_workers=len(VARIANTS)) as pool:
+        paths = dict(zip(VARIANTS, pool.map(build.build, VARIANTS.values())))
+    libs = {name: build.load(path) for name, path in paths.items()}
+    regs = {name: _registers((path.parent / build.LOG_NAME).read_text())
+            for name, path in paths.items()}
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    n = args.n
+    f3 = torch.randn((3, n, n, n), generator=gen, device=dev)
+    f2 = f3[:2].contiguous()
+    disp = _smooth_disp(n, args.max_disp, gen, dev)
+    plan = ref.make_interp_plan(disp)
+    cases = {
+        "K1_apply_C2": (lambda: tricubic.tricubic_apply_cuda(f2, plan),
+                        lambda: ref.interp_apply(f2, plan)),
+        "K1_apply_C3": (lambda: tricubic.tricubic_apply_cuda(f3, plan),
+                        lambda: ref.interp_apply(f3, plan)),
+        "K2_displace_many_C3": (lambda: tricubic.tricubic_displace_many_cuda(f3, disp),
+                                lambda: ref.tricubic_displace_many(f3, disp)),
+        "K3_displace": (lambda: tricubic.tricubic_displace_cuda(f3[0], disp),
+                        lambda: ref.tricubic_displace(f3[0], disp)),
+    }
+
+    errs = {name: {} for name in VARIANTS}
+    for case, (kern, plain) in cases.items():
+        want = plain()
+        for name, lib in libs.items():
+            build._LIB = lib
+            errs[name][case] = float((kern() - want).abs().max())
+        del want
+
+    times = {name: {case: [] for case in cases} for name in VARIANTS}
+    order = list(VARIANTS)
+    for r in range(args.rounds):
+        row = {}
+        for name in (order if r % 2 == 0 else order[::-1]):
+            build._LIB = libs[name]
+            for case, (kern, _) in cases.items():
+                ms = _time_ms(kern, args.reps)
+                times[name][case].append(ms)
+                row[f"{name}/{case}"] = ms
+        print(json.dumps({"round": r, "ms": row}), flush=True)
+    build._LIB = None
+
+    med = {name: {case: statistics.median(v) for case, v in t.items()}
+           for name, t in times.items()}
+    print(json.dumps({
+        "n": n, "rounds": args.rounds, "reps": args.reps, "max_disp": args.max_disp,
+        "median_ms": med,
+        "ratio_fmad_false_over_true": {c: med["fmad_false"][c] / med["fmad_true"][c]
+                                       for c in cases},
+        "registers": regs, "max_abs_err_vs_plain": errs,
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,13 +3,25 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
-kernel against its plain PyTorch version on the card, checks that the
-kernel path and the plain path give the same solve at 64^3, runs the
-default single-level ``register()`` at 256^3 and shows that it went
-through both kernels, times the kernels beside their bounds, and profiles
-one more Newton iteration by kernel class.  Every
-phase prints one JSON line; any failed phase ends the run with a nonzero
-exit code.  The last line is ``{"ok": true, "device": {...}}``.
+kernel against its plain PyTorch version on the card, and drives every path
+of the port that runs them, each with the launch counters set to 0 just
+before it and read just after:
+
+* ``solve_parity``, ``ml_solve_parity``: the single-level and the
+  coarse-to-fine ``register()`` at 64^3 give the same solve through the
+  kernels as through the plain versions (and the plain run launches none);
+* ``multilevel_path``: the example's coarse-to-fine ``register()`` (ladder
+  64^3 -> 128^3 -> 256^3, V-cycle preconditioner) at 256^3;
+* ``main_path``: the default single-level ``register()`` at 256^3;
+* ``warp``: the template resampled through the returned deformation (the
+  single-field displace kernel);
+* ``spectral``: the fused biharmonic scaling of a 256^3 spectrum.
+
+The launches of K1 and K2 on the solve paths must equal the counts derived
+from the code.  Then it times the kernels beside their bounds and profiles
+one more Newton iteration by kernel class.  Every phase prints one JSON
+line; any failed phase ends the run with a nonzero exit code.  The last
+line is ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.  Exits nonzero without printing a
 result when no CUDA device is present.
@@ -37,16 +49,38 @@ MAX_DISP = 12.0  # voxels, beyond the TPU kernels' halo of 4
 ATOL, RTOL = 2e-5, 1e-4  # kernel against plain version (tests/test_kernels.py)
 V_TOL = 1e-4  # solve parity: max |v_kernel - v_ref|
 MAX_NEWTON = 3
+# examples/multilevel_registration.py: 3-level ladder, V-cycle preconditioner
+ML_SOLVER = dict(beta=1e-3, beta_continuation=(1e-1, 1e-2), n_t=4, max_newton=8, gtol=1e-2,
+                 max_cg=40)
+ML_LEVELS = 3
+SPECTRAL_SHAPES = ((N_MAIN,) * 3, (8, 16, 128), (16, 8, 256), NONCUBIC)
+SPECTRAL_BETAS = ((1.0,), (1e-2, 1.0))
+SPECTRAL_RTOL = 2e-5  # kernel against plain version (tests/test_kernels.py)
+REG_APPLY_RTOL = 1e-3  # ifftn of the output against reg_apply, of max|reg_apply|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+# each kernel: its source, the TPU kernel it replaces, its __global__ symbol
+# and the phase whose run gives its launches in the kernels line
 KERNELS = {
     "tricubic_apply": {
         "source": "src/repro_torch/kernels/csrc/tricubic.cu",
         "replaces": "src/repro/kernels/tricubic.py:243",
+        "symbol": "apply_kernel", "path": "main_path",
     },
     "tricubic_displace_many": {
         "source": "src/repro_torch/kernels/csrc/tricubic.cu",
         "replaces": "src/repro/kernels/tricubic.py:202",
+        "symbol": "displace_kernel", "path": "main_path",
+    },
+    "tricubic_displace": {
+        "source": "src/repro_torch/kernels/csrc/tricubic.cu",
+        "replaces": "src/repro/kernels/tricubic.py:57",
+        "symbol": "field_warp_kernel", "path": "warp",
+    },
+    "biharmonic_scale": {
+        "source": "src/repro_torch/kernels/csrc/spectral_diag.cu",
+        "replaces": "src/repro/kernels/spectral_diag.py:27",
+        "symbol": "biharmonic_kernel", "path": "spectral",
     },
 }
 
@@ -62,6 +96,25 @@ def require(cond, msg: str) -> None:
 
 def emit(phase: str, **payload) -> None:
     print(json.dumps({"phase": phase, **payload}), flush=True)
+
+
+def _reset_launches() -> None:
+    from repro_torch.kernels import spectral_diag, tricubic
+
+    tricubic.reset_launches()
+    spectral_diag.reset_launches()
+
+
+def _launches() -> dict:
+    from repro_torch.kernels import spectral_diag, tricubic
+
+    return {**tricubic.LAUNCHES, **spectral_diag.LAUNCHES}
+
+
+def _is_symbol(symbol: str, name: str) -> bool:
+    """``name`` (a mangled entry or a demangled profiler name) is the kernel
+    ``symbol`` itself, not a longer name that contains it."""
+    return f"{len(symbol)}{symbol}" in name or re.search(rf"(?<!\w){symbol}\(", name) is not None
 
 
 # --------------------------------------------------------------------------- #
@@ -97,8 +150,8 @@ def phase_build() -> None:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            current = "apply_kernel" if "apply_kernel" in m.group(1) else (
-                "displace_kernel" if "displace_kernel" in m.group(1) else m.group(1))
+            current = next((k["symbol"] for k in KERNELS.values()
+                            if _is_symbol(k["symbol"], m.group(1))), m.group(1))
             per_kernel[current] = {}
             continue
         if current is None:
@@ -113,7 +166,7 @@ def phase_build() -> None:
             per_kernel[current]["registers"] = int(m.group(1))
             s = re.search(r"(\d+) bytes smem", line)
             per_kernel[current]["smem_bytes"] = int(s.group(1)) if s else 0
-    require(set(per_kernel) >= {"apply_kernel", "displace_kernel"},
+    require(set(per_kernel) >= {k["symbol"] for k in KERNELS.values()},
             f"ptxas report lacks a kernel: {log}")
     emit("build", seconds=secs, dir=str(build.build_dir()), ptxas=per_kernel)
 
@@ -133,29 +186,69 @@ def _compare(got, want) -> float:
 
 
 def phase_kernel_parity(dev) -> dict:
-    from repro_torch.kernels import ref, tricubic
+    """Every kernel against its plain version on the same inputs: K1 (C=1..3)
+    and K2 (C=3) and K3 at 256^3 and on a non-cubic grid with |disp| up to
+    12 voxels; K4 on four shapes and two beta sets, its output also held
+    against ``SpectralOps.reg_apply`` after an inverse FFT."""
+    from repro_torch.core.grid import make_grid
+    from repro_torch.core.spectral import SpectralOps
+    from repro_torch.kernels import ref, spectral_diag, tricubic
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs = {name: 0.0 for name in KERNELS}
     cases = []
     for shape in ((N_MAIN,) * 3, NONCUBIC):
-        for name, chans in (("tricubic_apply", (1, 2, 3)), ("tricubic_displace_many", (3,))):
+        for name, chans in (("tricubic_apply", (1, 2, 3)), ("tricubic_displace_many", (3,)),
+                            ("tricubic_displace", (1,))):
             for c in chans:
                 f, d = _inputs(shape, c, gen, dev)
                 if name == "tricubic_apply":
                     plan = ref.make_interp_plan(d)
                     got = tricubic.tricubic_apply_cuda(f, plan)
                     want = ref.interp_apply(f, plan)
-                else:
+                elif name == "tricubic_displace_many":
                     got = tricubic.tricubic_displace_many_cuda(f, d)
                     want = ref.tricubic_displace_many(f, d)
+                else:
+                    got = tricubic.tricubic_displace_cuda(f[0], d)
+                    want = ref.tricubic_displace(f[0], d)
                 torch.cuda.synchronize()
                 err = _compare(got, want)
                 errs[name] = max(errs[name], err)
                 cases.append({"kernel": name, "shape": list(shape), "C": c,
                               "max_disp": float(d.abs().max()), "max_abs_err": err})
                 del f, d, got, want
-    emit("kernel_parity", atol=ATOL, rtol=RTOL, cases=cases)
+    for shape in SPECTRAL_SHAPES:
+        f = torch.randn(shape, generator=gen, device=dev)
+        spec = torch.fft.fftn(f)
+        re, im = spec.real.contiguous(), spec.imag.contiguous()
+        ops = SpectralOps(make_grid(shape), device=dev)
+        for betas in SPECTRAL_BETAS:
+            got = spectral_diag.biharmonic_scale_cuda(re, im, betas)
+            want = spectral_diag.biharmonic_scale_ref(re, im, betas)
+            torch.cuda.synchronize()
+            err, rel = 0.0, 0.0
+            for g, w in zip(got, want):
+                e = (g - w).abs()
+                require(bool(torch.all(e <= SPECTRAL_RTOL * w.abs())),
+                        f"biharmonic_scale disagrees with plain version at {shape}, {betas}: "
+                        f"max abs err {float(e.max())}")
+                err = max(err, float(e.max()))
+            for c, beta in enumerate(betas):
+                back = torch.fft.ifftn(torch.complex(got[0][c], got[1][c])).real
+                reg = ops.reg_apply(f, beta)
+                scale = float(reg.abs().max())
+                rel = max(rel, float((back - reg).abs().max()) / scale)
+            require(rel < REG_APPLY_RTOL,
+                    f"ifftn(biharmonic_scale) != reg_apply at {shape}, {betas}: {rel}")
+            errs["biharmonic_scale"] = max(errs["biharmonic_scale"], err)
+            cases.append({"kernel": "biharmonic_scale", "shape": list(shape),
+                          "betas": list(betas), "max_abs_err": err,
+                          "max_rel_err_vs_reg_apply": rel})
+            del got, want
+        del f, spec, re, im, ops
+    emit("kernel_parity", atol=ATOL, rtol=RTOL, spectral_rtol=SPECTRAL_RTOL,
+         reg_apply_rtol=REG_APPLY_RTOL, cases=cases)
     return errs
 
 
@@ -183,36 +276,95 @@ def phase_solve_parity(dev) -> None:
     require(dv < V_TOL, f"max |v_kernel - v_ref| = {dv} >= {V_TOL}")
 
 
-def _expected_launches(history) -> dict:
-    """Launches the code makes, counted from the solve's history.
+def _solve_launches(history) -> tuple[int, int]:
+    """(K2, K1) launches of ``gn.solve``'s Newton iterations in ``history``.
 
     K2 (departure solve): 2 per Newton state (+v and -v), 1 per Armijo
-    trial, 2 for the final diagnostics plan.  K1 (planned apply): 4 for the
-    state and 4 for the adjoint transport of each Newton state, 8 per GN
-    matvec, 4 per Armijo trial, 5 for the deformation map and 4 for the
-    final stacked transport.
+    trial.  K1 (planned apply): 4 for the state and 4 for the adjoint
+    transport of each Newton state, 8 per GN matvec, 4 per Armijo trial.
     """
     newton = len(history)
     trials = sum(1 + h["armijo_trials"] for h in history)
     matvecs = sum(h["cg_iters"] for h in history)
-    return {
-        "tricubic_displace_many": 2 * newton + trials + 2,
-        "tricubic_apply": 8 * newton + 8 * matvecs + 4 * trials + 5 + 4,
-    }
+    return 2 * newton + trials, 8 * newton + 8 * matvecs + 4 * trials
+
+
+def _expected_launches(history) -> dict:
+    """Launches of the single-level ``register()``, counted from its history:
+    the solve, then the final diagnostics (2 K2 for the plan; 5 K1 for the
+    deformation map and 4 for the final stacked transport)."""
+    k2, k1 = _solve_launches(history)
+    return {"tricubic_apply": k1 + 5 + 4, "tricubic_displace_many": k2 + 2,
+            "tricubic_displace": 0, "biharmonic_scale": 0}
+
+
+def _vcycle_k1_per_apply(n_levels: int, n_cg: int, n_cg_coarse: int) -> int:
+    """K1 launches of one V-cycle application over ``n_levels`` ladder levels:
+    at level l, ``iters`` coarse GN matvecs (8 K1 each) and ``iters + 1``
+    applications one level down (none below the coarsest).  The Galerkin
+    coarse states are restricted, not transported: no launches."""
+    def apply(l: int) -> int:
+        if l == 0:
+            return 0
+        iters = n_cg_coarse if l == 1 else n_cg
+        return 8 * iters + (iters + 1) * apply(l - 1)
+
+    return apply(n_levels - 1)
+
+
+def _expected_ml_launches(out, mcfg) -> dict:
+    """Launches of the coarse-to-fine ``register()`` with the V-cycle,
+    counted from its per-level history: each level's solve (as
+    ``_solve_launches``), 2 K2 and 8 K1 for each warm level's cold gradient
+    (one Newton state at v = 0), ``cg_iters + 1`` preconditioner
+    applications per Newton iteration of a warm level (each
+    ``_vcycle_k1_per_apply`` over the ladder levels the recursion floor
+    keeps), and the final diagnostics."""
+    k2 = k1 = 0
+    shapes = [lv["shape"] for lv in out["levels"]]
+    for lv, rec in enumerate(out["levels"]):
+        hist = [h for h in out["history"] if h["level"] == lv]
+        a, b = _solve_launches(hist)
+        k2, k1 = k2 + a, k1 + b
+        if rec["warm_start"]:
+            k2, k1 = k2 + 2, k1 + 8
+        if lv > 0 and mcfg.precond_kind == "vcycle":
+            kept = sum(1 for i in range(lv + 1)
+                       if min(shapes[i]) >= mcfg.precond_min_size or i >= lv - 1)
+            per = _vcycle_k1_per_apply(kept, mcfg.precond_cg_iters, mcfg.precond_coarse_cg_iters)
+            k1 += per * sum(h["cg_iters"] + 1 for h in hist)
+    return {"tricubic_apply": k1 + 5 + 4, "tricubic_displace_many": k2 + 2,
+            "tricubic_displace": 0, "biharmonic_scale": 0}
+
+
+def _check_solution(out) -> None:
+    scalars = [out["det_min"], out["det_max"], out["residual_rel"]]
+    scalars += [x for h in out["history"] for x in (h["J"], h["gnorm"])]
+    require(all(np.isfinite(scalars)), f"non-finite diagnostics: {scalars}")
+    require(bool(torch.isfinite(out["v"]).all()), "non-finite velocity")
+    require(out["det_min"] > 0, f"det_min = {out['det_min']} <= 0")
+
+
+def _require_launched(launches, expected, path: str) -> None:
+    """The kernels of ``path`` ran, and exactly as often as the code says."""
+    for name, meta in KERNELS.items():
+        if meta["path"] == path or expected[name] > 0:
+            require(launches[name] > 0, f"{name} was not launched on {path}")
+    require(launches == expected,
+            f"{path}: launch counts {launches} != counted from code {expected}")
 
 
 def phase_main(dev) -> tuple[dict, dict, tuple]:
     from repro_torch import telemetry
-    from repro_torch.kernels import tricubic
 
     torch.cuda.reset_peak_memory_stats()
-    tricubic.reset_launches()
+    _reset_launches()
     t0 = time.perf_counter()
     with telemetry.ListSink() as sink:
         out, images = _register(N_MAIN, "auto", dev)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(tricubic.LAUNCHES)
+    launches = _launches()
     walls = [r["wall_s"] for r in sink.records if r["kind"] == "newton_iter"]
     iters = [
         {"iter": h["iter"], "J": h["J"], "gnorm": h["gnorm"], "rel_gnorm": h["rel_gnorm"],
@@ -227,22 +379,167 @@ def phase_main(dev) -> tuple[dict, dict, tuple]:
          residual_rel_smoothed=out["residual_rel_smoothed"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=launches, expected_launches=expected)
-    for name in KERNELS:
-        require(launches[name] > 0, f"{name} was not launched on the main path")
-    require(launches == expected, f"launch counts {launches} != counted from code {expected}")
-    scalars = [out["det_min"], out["det_max"], out["residual_rel"]]
-    scalars += [x for h in out["history"] for x in (h["J"], h["gnorm"])]
-    require(all(np.isfinite(scalars)), f"non-finite diagnostics: {scalars}")
-    require(bool(torch.isfinite(out["v"]).all()), "non-finite velocity")
-    require(out["det_min"] > 0, f"det_min = {out['det_min']} <= 0")
+    _require_launched(launches, expected, "main_path")
+    _check_solution(out)
     return out, launches, images
 
 
+# --------------------------------------------------------------------------- #
+def _register_ml(n, method, dev):
+    """The example's coarse-to-fine ``register()`` (3-level ladder, V-cycle)
+    on the brain phantom pair.  Returns (result, multilevel config, images)."""
+    from repro_torch.core import gauss_newton as gn
+    from repro_torch.core.registration import RegistrationConfig, register
+    from repro_torch.data import synthetic
+    from repro_torch.multilevel import MultilevelConfig
+
+    rho_R, rho_T, grid = synthetic.brain_like(n, seed=SEED, device=dev)
+    mcfg = MultilevelConfig(solver=gn.GNConfig(**ML_SOLVER, interp_method=method),
+                            n_levels=ML_LEVELS, precond="vcycle")
+    out = register(rho_R, rho_T, RegistrationConfig(multilevel=mcfg), grid=grid, device=dev)
+    return out, mcfg, (rho_R, rho_T)
+
+
+def _level_summary(out) -> list[dict]:
+    return [
+        {k: lv[k] for k in ("shape", "betas", "newton_iters", "hessian_matvecs",
+                            "precond_fine_equiv_matvecs", "wall_s", "rel_gnorm")}
+        | {key: [h[key] for h in out["history"] if h["level"] == i]
+           for key in ("cg_iters", "J", "gnorm")}
+        for i, lv in enumerate(out["levels"])
+    ]
+
+
+def phase_ml_solve_parity(dev) -> None:
+    """The coarse-to-fine solve at 64^3 through the kernels and through the
+    plain versions: the same per-level Newton counts and per-iteration
+    cg_iters, |dv| < V_TOL, and no kernel launch at all on the plain run."""
+    outs, launches = {}, {}
+    for method in ("auto", "ref"):
+        _reset_launches()
+        outs[method], mcfg, _ = _register_ml(N_SOLVE_PARITY, method, dev)
+        torch.cuda.synchronize()
+        launches[method] = _launches()
+    levels = {m: _level_summary(o) for m, o in outs.items()}
+    dv = float((outs["auto"]["v"] - outs["ref"]["v"]).abs().max())
+    expected = _expected_ml_launches(outs["auto"], mcfg)
+    emit("ml_solve_parity", n=N_SOLVE_PARITY, grids=outs["auto"]["grids"], levels=levels,
+         max_abs_dv=dv, launches=launches, expected_launches_auto=expected)
+    for key in ("newton_iters", "hessian_matvecs", "cg_iters"):
+        got = {m: [lv[key] for lv in ls] for m, ls in levels.items()}
+        require(got["auto"] == got["ref"], f"{key} differ per level: {got}")
+    require(dv < V_TOL, f"max |v_kernel - v_ref| = {dv} >= {V_TOL}")
+    require(all(n == 0 for n in launches["ref"].values()),
+            f"the plain run launched kernels: {launches['ref']}")
+    _require_launched(launches["auto"], expected, "ml_solve_parity")
+    _check_solution(outs["auto"])
+
+
+def phase_multilevel(dev) -> dict:
+    """The example's coarse-to-fine ``register()`` at 256^3 (64^3 -> 128^3 ->
+    256^3, V-cycle at both warm levels), through the kernels."""
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out, mcfg, images = _register_ml(N_MAIN, "auto", dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    expected = _expected_ml_launches(out, mcfg)
+    emit("multilevel_path", n=N_MAIN, grids=out["grids"], seconds=secs,
+         solver=ML_SOLVER, precond="vcycle", max_newton_cut=False,
+         levels=_level_summary(out), newton_iters=out["newton_iters"],
+         hessian_matvecs=out["hessian_matvecs"], fine_matvecs=out["fine_matvecs"],
+         fine_equiv_matvecs=out["fine_equiv_matvecs"],
+         precond_fine_equiv_matvecs=out["precond_fine_equiv_matvecs"],
+         total_fine_equiv_matvecs=out["total_fine_equiv_matvecs"],
+         det_min=out["det_min"], det_max=out["det_max"], residual_rel=out["residual_rel"],
+         residual_rel_smoothed=out["residual_rel_smoothed"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, expected_launches=expected)
+    _require_launched(launches, expected, "multilevel_path")
+    _check_solution(out)
+    return {"out": out, "cfg": mcfg, "images": images}
+
+
+def phase_warp(out, images, dev) -> dict:
+    """Resample the raw template through the returned deformation: a 3-D
+    field through ``Interp()``, so the single-field displace kernel (K3)."""
+    from repro_torch.kernels import ops, ref
+
+    grid = out["grid"]
+    h = torch.tensor(grid.spacing, dtype=torch.float32, device=dev).reshape(3, 1, 1, 1)
+    disp = (out["displacement"] / h).contiguous()
+    rho_T = images[1].contiguous()
+    _reset_launches()
+    warped = ops.make_interp()(rho_T, disp)
+    torch.cuda.synchronize()
+    launches = _launches()
+    want = ref.tricubic_displace(rho_T, disp)
+    err = _compare(warped, want)
+    expected = {"tricubic_apply": 0, "tricubic_displace_many": 0, "tricubic_displace": 1,
+                "biharmonic_scale": 0}
+    emit("warp", n=N_MAIN, max_disp=float(disp.abs().max()), launches=launches,
+         max_abs_err_vs_plain=err,
+         max_abs_warp_minus_rho_deformed=float((warped - out["rho_deformed"]).abs().max()),
+         note="rho_deformed transports the presmoothed template; the warp resamples the raw "
+              "one, so their difference is for information only")
+    _require_launched(launches, expected, "warp")
+    return {"field": rho_T, "disp": disp, "launches": launches}
+
+
+def phase_spectral(images, dev) -> dict:
+    """The fused biharmonic scaling of the 256^3 reference image's spectrum,
+    through ``spectral_diag.biharmonic_scale`` (K4), held against its plain
+    version on the same spectrum.  Both inverse FFTs of the result and
+    ``SpectralOps.reg_apply`` are also compared with a float64 computation
+    of ``beta Lap^2 rho_R``, for information: on a smooth image the f32
+    roundoff of the large low modes, scaled by |k|^4 up to 2.4e9, dominates
+    the small high modes of the result."""
+    from repro_torch.core.grid import make_grid
+    from repro_torch.core.spectral import SpectralOps
+    from repro_torch.kernels import spectral_diag
+
+    rho_R = images[0]
+    betas = SPECTRAL_BETAS[-1]
+    spec = torch.fft.fftn(rho_R)
+    re, im = spec.real.contiguous(), spec.imag.contiguous()
+    del spec
+    _reset_launches()
+    out_re, out_im = spectral_diag.biharmonic_scale(re, im, betas)
+    torch.cuda.synchronize()
+    launches = _launches()
+    want_re, want_im = spectral_diag.biharmonic_scale(re, im, betas, method="ref")
+    err = max(float((out_re - want_re).abs().max()), float((out_im - want_im).abs().max()))
+    ok = all(bool(torch.all((g - w).abs() <= SPECTRAL_RTOL * w.abs()))
+             for g, w in ((out_re, want_re), (out_im, want_im)))
+    del want_re, want_im
+    ops = SpectralOps(make_grid(tuple(rho_R.shape)), device=dev)
+    ksq64 = spectral_diag._ksq(rho_R.shape, dev).double()
+    spec64 = torch.fft.fftn(rho_R.double())
+    vs_f64 = []
+    for c, beta in enumerate(betas):
+        exact = torch.fft.ifftn(beta * ksq64 * ksq64 * spec64).real
+        scale = float(exact.abs().max())
+        kernel_route = torch.fft.ifftn(torch.complex(out_re[c], out_im[c])).real.double()
+        rfft_route = ops.reg_apply(rho_R, beta).double()
+        vs_f64.append({"beta": beta, "max_abs": scale,
+                       "kernel_route_rel": float((kernel_route - exact).abs().max()) / scale,
+                       "reg_apply_rel": float((rfft_route - exact).abs().max()) / scale})
+        del exact, kernel_route, rfft_route
+    expected = {"tricubic_apply": 0, "tricubic_displace_many": 0, "tricubic_displace": 0,
+                "biharmonic_scale": 1}
+    emit("spectral", n=N_MAIN, betas=list(betas), launches=launches,
+         max_abs_err_vs_plain=err, vs_float64=vs_f64)
+    _require_launched(launches, expected, "spectral")
+    require(ok, f"biharmonic_scale disagrees with plain version: max abs err {err}")
+    return {"re": re, "im": im, "betas": betas, "launches": launches}
+
+
 def _kernel_class(name: str) -> str:
-    if "apply_kernel" in name:
-        return "K1 tricubic_apply"
-    if "displace_kernel" in name:
-        return "K2 tricubic_displace_many"
+    for i, (kname, meta) in enumerate(KERNELS.items()):
+        if _is_symbol(meta["symbol"], name):
+            return f"K{i + 1} {kname}"
     if re.search(r"fft|radix", name, re.I):
         return "cuFFT"
     if re.search(r"memcpy|memset", name, re.I):
@@ -250,12 +547,39 @@ def _kernel_class(name: str) -> str:
     return "other (elementwise, reductions, cat)"
 
 
-def phase_profile(out, images, dev) -> None:
-    """Device time of one more Newton iteration at 256^3, from the solved
-    velocity, by kernel class (torch.profiler's CUDA activity)."""
+def _profile_newton(phase: str, n: int, newton, **extra) -> None:
+    """Device time of one Newton iteration (``newton()`` returns its log) by
+    kernel class, from torch.profiler's CUDA activity, beside its host wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        log = newton()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_class, by_name = {}, {}
+    for e in prof.events():
+        # record_function ranges (telemetry.annotate) also appear on the
+        # device timeline; they are not kernels and would count twice
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        us = e.time_range.elapsed_us()
+        by_class[_kernel_class(e.name)] = by_class.get(_kernel_class(e.name), 0.0) + us / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+    busy = sum(by_class.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit(phase, n=n, **extra, cg_iters=log.cg_iters, armijo_trials=log.ls_iters,
+         wall_ms_profiled=wall * 1e3,
+         device_ms=by_class if busy else "not measured: the profiler recorded no CUDA activity",
+         device_busy_ms=busy, idle_share=(1 - busy / (wall * 1e3)) if busy else None,
+         top_kernels_ms=[{"name": n[:120], "ms": ms} for n, ms in top])
+
+
+def phase_profile(out, images, dev) -> None:
+    """One more single-level Newton iteration at 256^3 from the solved
+    velocity, with the spectral preconditioner."""
     from repro_torch.core import gauss_newton as gn
     from repro_torch.core import objective as obj
     from repro_torch.core.spectral import SpectralOps
@@ -266,26 +590,41 @@ def phase_profile(out, images, dev) -> None:
     prob = obj.Problem(grid, ops.smooth(images[0]), ops.smooth(images[1]), cfg.beta, cfg.n_t,
                        cfg.incompressible)
     g0 = torch.tensor(out["history"][0]["gnorm"], dtype=torch.float32, device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, log = gn.newton_iteration(out["v"], g0, prob, ops, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_class, by_name = {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        by_class[_kernel_class(e.name)] = by_class.get(_kernel_class(e.name), 0.0) + us / 1e3
-        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
-    busy = sum(by_class.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit("profile", n=N_MAIN, cg_iters=log.cg_iters, armijo_trials=log.ls_iters,
-         wall_ms_profiled=wall * 1e3,
-         device_ms=by_class if busy else "not measured: the profiler recorded no CUDA activity",
-         device_busy_ms=busy, idle_share=(1 - busy / (wall * 1e3)) if busy else None,
-         top_kernels_ms=[{"name": n[:120], "ms": ms} for n, ms in top])
+    _profile_newton("profile", N_MAIN,
+                    lambda: gn.newton_iteration(out["v"], g0, prob, ops, cfg)[1])
+
+
+def phase_ml_profile(ml, dev) -> None:
+    """One more Newton iteration of the coarse-to-fine solve's 256^3 level
+    from its solved velocity, preconditioned by the V-cycle over the whole
+    ladder (64^3 and 128^3 inner solves), as ``multilevel.solve`` builds it."""
+    from repro_torch.core import gauss_newton as gn
+    from repro_torch.core import objective as obj
+    from repro_torch.core.grid import make_grid
+    from repro_torch.core.spectral import SpectralOps
+    from repro_torch.kernels import ops as kops
+    from repro_torch.multilevel.precond import make_vcycle_precond
+
+    out, mcfg, images = ml["out"], ml["cfg"], ml["images"]
+    level_ops = [SpectralOps(make_grid(tuple(shape)), device=dev) for shape in out["grids"]]
+    fine = level_ops[-1]
+    cfg = mcfg.solver
+    interp = kops.make_interp(cfg.interp_method)
+    prob = obj.Problem(fine.grid, fine.smooth(images[0]), fine.smooth(images[1]), cfg.beta,
+                       cfg.n_t, cfg.incompressible)
+    precond = make_vcycle_precond(
+        prob, level_ops, level_interp=[interp] * len(level_ops), n_cg=mcfg.precond_cg_iters,
+        n_cg_coarse=mcfg.precond_coarse_cg_iters, min_size=mcfg.precond_min_size,
+    )
+    last = len(out["levels"]) - 1
+    fine_hist = [h for h in out["history"] if h["level"] == last and h["beta"] == cfg.beta]
+    g0 = torch.tensor(fine_hist[0]["gnorm"], dtype=torch.float32, device=dev)
+    _profile_newton(
+        "ml_profile", N_MAIN,
+        lambda: gn.newton_iteration(out["v"], g0, prob, fine, cfg, interp=interp,
+                                    precond=precond)[1],
+        grids=out["grids"], precond="vcycle",
+    )
 
 
 # --------------------------------------------------------------------------- #
@@ -308,14 +647,18 @@ def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernel_times(out, dev) -> dict:
-    """Times at 256^3 on the main path's own data: the departure solve of
-    the solved velocity (K2, C=3), and the planned apply of its departure
-    plan to a C=2 stack of deformed images (K1, the C of the adjoint and
-    incremental transport steps)."""
+def phase_kernel_times(out, warp, spectral, dev) -> dict:
+    """Times at 256^3 on the paths' own data: the departure solve of the
+    solved velocity (K2, C=3); the planned apply of its departure plan to a
+    C=2 stack of deformed images (K1, the C of the adjoint and incremental
+    transport steps); the warp's resampling of the template (K3); the
+    scaling of the reference image's spectrum by two betas (K4).  Each row:
+    CUDA events over 50 launches (the plain version: 3), the bound from the
+    bytes and operations of these inputs, and one PyTorch call computing
+    the same function where there is one."""
     from repro_torch.core import gauss_newton as gn
     from repro_torch.core import planner
-    from repro_torch.kernels import ref, tricubic
+    from repro_torch.kernels import ref, spectral_diag, tricubic
 
     grid = out["grid"]
     v = out["v"]
@@ -327,24 +670,44 @@ def phase_kernel_times(out, dev) -> dict:
     plan = ref.make_interp_plan(disp)
     lam = out["rho_deformed"]
     f2 = torch.stack([lam, lam * lam]).contiguous()
+    field, wdisp = warp["field"], warp["disp"]
+    re, im, betas = spectral["re"], spectral["im"], spectral["betas"]
+    nb = len(betas)
+    # the library yardstick of K4: one torch.mul of the stacked planes by a
+    # precomputed symbol (computed here, outside the timed call)
+    planes = torch.stack([re, im])[None]  # (1, 2, N..)
+    ksq = spectral_diag._ksq(re.shape, dev)
+    sym = torch.stack([(b * ksq) * ksq for b in betas])[:, None]  # (C, 1, N..)
     npts = grid.num_points
     rows = {}
-    for name, kern, plain, c, nbytes, flops in (
+    for name, kern, plain, library, c, nbytes, flops, max_disp in (
         ("tricubic_apply", lambda: tricubic.tricubic_apply_cuda(f2, plan),
-         lambda: ref.interp_apply(f2, plan), 2, (2 * 2 + 15) * 4 * npts, 168 * 2 * npts),
+         lambda: ref.interp_apply(f2, plan), None, 2, (2 * 2 + 15) * 4 * npts,
+         168 * 2 * npts, disp),
         ("tricubic_displace_many", lambda: tricubic.tricubic_displace_many_cuda(vg, d_star),
-         lambda: ref.tricubic_displace_many(vg, d_star), 3, (2 * 3 + 3) * 4 * npts,
-         (168 * 3 + 66) * npts),
+         lambda: ref.tricubic_displace_many(vg, d_star), None, 3, (2 * 3 + 3) * 4 * npts,
+         (168 * 3 + 66) * npts, d_star),
+        ("tricubic_displace", lambda: tricubic.tricubic_displace_cuda(field, wdisp),
+         lambda: ref.tricubic_displace(field, wdisp), None, 1, (1 + 3 + 1) * 4 * npts,
+         (168 + 66) * npts, wdisp),
+        ("biharmonic_scale", lambda: spectral_diag.biharmonic_scale_cuda(re, im, betas),
+         lambda: spectral_diag.biharmonic_scale_ref(re, im, betas),
+         lambda: torch.mul(planes, sym), nb, (2 + 2 * nb) * 4 * npts, (5 + 4 * nb) * npts,
+         None),
     ):
         ms = _time_ms(kern, reps=50)
         plain_ms = _time_ms(plain, reps=3, warmup=1)
+        library_ms = None if library is None else _time_ms(library, reps=50)
         bound, by = _bound_ms(nbytes, flops)
         rows[name] = {"C": c, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": by, "bytes": nbytes, "flops": flops,
-                      "max_disp": float((disp if name == "tricubic_apply" else d_star).abs().max())}
+                      "bound_by": by, "library_ms": library_ms, "bytes": nbytes,
+                      "flops": flops,
+                      "max_disp": None if max_disp is None else float(max_disp.abs().max())}
     emit("kernel_times", n=N_MAIN, rows=rows,
-         library_ms_note="no single PyTorch call computes a tricubic interpolation; "
-                         "grid_sample is at most trilinear in 3-D, so library_ms is null")
+         library_ms_note="no single PyTorch call computes a tricubic interpolation "
+                         "(grid_sample is at most trilinear in 3-D), so K1-K3 have none; "
+                         "K4's is torch.mul of the stacked planes (1,2,N..) by a "
+                         "precomputed beta_c |k|^4 (C,1,N..)")
     return rows
 
 
@@ -358,15 +721,25 @@ def main() -> int:
     phase_build()
     errs = phase_kernel_parity(dev)
     phase_solve_parity(dev)
-    out, launches, images = phase_main(dev)
-    times = phase_kernel_times(out, dev)
+    phase_ml_solve_parity(dev)
+    ml = phase_multilevel(dev)
+    phase_ml_profile(ml, dev)
+    del ml
+    torch.cuda.empty_cache()
+    out, main_launches, images = phase_main(dev)
+    warp = phase_warp(out, images, dev)
+    spectral = phase_spectral(images, dev)
+    times = phase_kernel_times(out, warp, spectral, dev)
     phase_profile(out, images, dev)
+    launches = {"main_path": main_launches, "warp": warp["launches"],
+                "spectral": spectral["launches"]}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", **meta, "parity": "ok",
-         "launches": launches[name], "max_abs_err": errs[name],
+        {"name": name, "route": "cuda", "source": meta["source"],
+         "replaces": meta["replaces"], "path": meta["path"], "parity": "ok",
+         "launches": launches[meta["path"]][name], "max_abs_err": errs[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
-         "library_ms": None}
+         "library_ms": times[name]["library_ms"]}
         for name, meta in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -14,6 +14,7 @@ from repro_torch.core.gauss_newton import GNConfig
 from repro_torch.core.registration import RegistrationConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import InterpPlan
+from repro_torch.multilevel.hierarchy import MultilevelConfig
 
 # reference interp methods and their counterparts here: "pallas" named the
 # TPU kernel, whose counterpart is the CUDA kernel
@@ -49,8 +50,25 @@ def gn_config_from_dict(d: dict) -> GNConfig:
     return GNConfig(**d)
 
 
+def multilevel_config_from_dict(d: dict) -> MultilevelConfig:
+    """``MultilevelConfig`` from ``dataclasses.asdict`` of the reference's;
+    an ``interp_method`` in ``level_overrides`` maps as in ``solver``."""
+    d = dict(d)
+    d["solver"] = gn_config_from_dict(d.get("solver", {}))
+    overrides = []
+    for o in d.get("level_overrides", ()):
+        o = dict(o)
+        if "interp_method" in o:
+            o["interp_method"] = _INTERP_METHODS[o["interp_method"]]
+        overrides.append(o)
+    d["level_overrides"] = tuple(overrides)
+    return MultilevelConfig(**d)
+
+
 def registration_config_from_dict(d: dict) -> RegistrationConfig:
     """``RegistrationConfig`` from ``dataclasses.asdict`` of the reference's."""
     d = dict(d)
     solver = gn_config_from_dict(d.pop("solver", {}))
+    if d.get("multilevel") is not None:
+        d["multilevel"] = multilevel_config_from_dict(d["multilevel"])
     return RegistrationConfig(solver=solver, **d)

@@ -1,5 +1,6 @@
 """High-level registration API (the paper's end-to-end pipeline); counterpart
-of ``repro/core/registration.py`` for one subject on one grid level.
+of ``repro/core/registration.py`` for one subject, on one grid level or on
+a coarse-to-fine ladder (``RegistrationConfig(multilevel=...)``).
 
     result = register(rho_R, rho_T, RegistrationConfig(...), device="cuda")
 
@@ -11,6 +12,7 @@ det(grad y1) range).
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import torch
 
@@ -20,23 +22,29 @@ from repro_torch.core.grid import Grid, make_grid
 from repro_torch.core.planner import make_plan
 from repro_torch.core.spectral import SpectralOps
 
+if TYPE_CHECKING:  # imported inside register(): core does not depend on multilevel
+    from repro_torch.multilevel.hierarchy import MultilevelConfig
+
 
 @dataclasses.dataclass(frozen=True)
 class RegistrationConfig:
-    """``multilevel`` and ``blocks`` exist for the reference's field names;
-    anything but ``None`` raises (ROADMAP Queue A items 8 and 11)."""
+    """``multilevel`` is a ``repro_torch.multilevel.MultilevelConfig`` (its
+    ``solver`` then supersedes ``solver``); ``blocks`` exists for the
+    reference's field name, and anything but ``None`` raises (ROADMAP Queue
+    A item 11).  The two together raise ``ValueError``, as in the reference.
+    """
 
     solver: gn.GNConfig = dataclasses.field(default_factory=gn.GNConfig)
     presmooth: bool = True  # spectral Gaussian at grid bandwidth (paper §III-B1)
-    multilevel: object = None
+    multilevel: "MultilevelConfig | None" = None
     blocks: object = None
 
     def __post_init__(self):
-        if self.multilevel is not None:
-            raise NotImplementedError(
-                "RegistrationConfig.multilevel is not ported (ROADMAP Queue A item 8)"
-            )
         if self.blocks is not None:
+            if self.multilevel is not None:
+                raise ValueError(
+                    "RegistrationConfig: blocks and multilevel are mutually exclusive"
+                )
             raise NotImplementedError(
                 "RegistrationConfig.blocks is not ported (ROADMAP Queue A item 11)"
             )
@@ -59,9 +67,13 @@ def register(
     (the ops' device when ``ops`` is given).  ``residual_rel`` measures the
     registration on the raw inputs, ``residual_rel_smoothed`` on the
     presmoothed pair the solver optimized; both transports ride one stacked
-    semi-Lagrangian solve.
+    semi-Lagrangian solve.  With ``multilevel`` the ladder's driver builds
+    each level's interp from that level's config; ``interp`` then serves
+    the final diagnostics only, as in the reference.
     """
     config = config or RegistrationConfig()
+    if config.multilevel is not None:
+        config = dataclasses.replace(config, solver=config.multilevel.solver)
     grid = grid or make_grid(tuple(rho_R.shape))
     ops = ops or SpectralOps(grid, device=device)
     interp = interp or gn._interp_fn(config.solver)
@@ -72,9 +84,15 @@ def register(
         rho_R = ops.smooth(rho_R)
         rho_T = ops.smooth(rho_T)
 
-    out = gn.solve(
-        rho_R, rho_T, grid, config.solver, ops=ops, interp=interp, verbose=verbose, v0=v0
-    )
+    if config.multilevel is not None:
+        from repro_torch import multilevel
+
+        out = multilevel.solve(rho_R, rho_T, grid, config.multilevel, ops=ops, v0=v0,
+                               verbose=verbose)
+    else:
+        out = gn.solve(
+            rho_R, rho_T, grid, config.solver, ops=ops, interp=interp, verbose=verbose, v0=v0
+        )
     v = out["v"]
 
     # deformation map + diagnostics, on the same backend as the solve

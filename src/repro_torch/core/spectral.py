@@ -29,6 +29,34 @@ from repro_torch.device import resolve_device
 _DIMS = (-3, -2, -1)
 
 
+# Coarsening a periodic spectral discretization is exact mode selection: the
+# coarse grid of size M carries the modes k in {0..ceil(M/2)-1, -M//2..-1}.
+# ``mode_indices`` maps those modes to their positions in a length-N fine
+# spectrum (numpy fft ordering); ``nyquist_mask`` zeroes the +-M/2 plane,
+# whose fine counterpart is ambiguous, in both restriction and prolongation,
+# which keeps the pair exactly adjoint (``repro_torch.multilevel.transfer``).
+def mode_indices(n_fine: int, n_coarse: int, rfft: bool = False) -> np.ndarray:
+    """Positions of the coarse grid's modes inside a length-``n_fine`` spectrum,
+    in coarse-spectrum order: two contiguous runs (positive head, negative
+    tail).  ``rfft=True`` addresses an rfft last axis (modes 0..n/2)."""
+    if n_coarse > n_fine:
+        raise ValueError(f"coarse axis {n_coarse} exceeds fine axis {n_fine}")
+    if rfft:
+        return np.arange(n_coarse // 2 + 1)
+    n_pos = n_coarse - n_coarse // 2  # modes 0 .. ceil(M/2)-1
+    n_neg = n_coarse // 2  # modes -M//2 .. -1
+    return np.concatenate([np.arange(n_pos), np.arange(n_fine - n_neg, n_fine)])
+
+
+def nyquist_mask(n_fine: int, n_coarse: int, rfft: bool = False) -> np.ndarray:
+    """1.0 per retained mode, 0.0 on the coarse Nyquist plane (even M < N)."""
+    size = n_coarse // 2 + 1 if rfft else n_coarse
+    mask = np.ones(size, np.float32)
+    if n_coarse % 2 == 0 and n_coarse < n_fine:
+        mask[n_coarse // 2] = 0.0
+    return mask
+
+
 class LocalFFT:
     """Single-device backend: real FFT over the last three axes."""
 

@@ -1,10 +1,11 @@
 """Build the CUDA kernels at first use and bind them with ``ctypes``.
 
-``nvcc`` compiles ``csrc/tricubic.cu`` for ``sm_90a`` into a shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds).
-The library goes to ``build/kernels/<hash of the source>/`` at the root of
-the checkout, a directory ``.gitignore`` lists; a changed source builds
-anew, an unchanged one is loaded from there.  Nothing is built when the
+``nvcc`` compiles each source of ``csrc/`` for ``sm_90a`` (one compiler
+process per source, all started together) and links the objects into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds).  The library goes to ``build/kernels/<hash of the
+sources>/`` at the root of the checkout, a directory ``.gitignore`` lists;
+a changed source builds anew, an unchanged one is loaded from there.  Nothing is built when the
 module is imported: the CPU tests import every module on machines that
 have no ``nvcc``.
 """
@@ -16,21 +17,26 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "tricubic.cu",)
+SOURCES = (CSRC / "tricubic.cu", CSRC / "spectral_diag.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+# -fmad=false: no multiply is fused into an add; part of the rounding
+# contract stated at the head of csrc/tricubic.cu
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
-LIB_NAME = "libtricubic.so"
+LIB_NAME = "libkernels.so"
 LOG_NAME = "ptxas.log"
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _FP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
 SIGNATURES = {
     "tricubic_apply_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "tricubic_displace_many_f32": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "tricubic_displace_f32": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    "biharmonic_scale_f32": [_VP, _VP, _VP, _VP, _FP, _I, _I, _I, _I, _VP],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -47,42 +53,53 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME/bin or /usr/local/cuda/bin")
 
 
-def source_hash() -> str:
+def source_hash(flags: tuple[str, ...] = NVCC_FLAGS) -> str:
     h = hashlib.sha256()
     for src in SOURCES:
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def build_dir() -> Path:
-    return BUILD_ROOT / source_hash()
+def build_dir(flags: tuple[str, ...] = NVCC_FLAGS) -> Path:
+    return BUILD_ROOT / source_hash(flags)
 
 
-def build() -> Path:
+def _run(cmd: list[str]) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+        )
+    return proc.stdout + proc.stderr
+
+
+def build(flags: tuple[str, ...] = NVCC_FLAGS) -> Path:
     """Compile the kernels unless this source's library exists; return its path.
 
-    The compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
-    is kept beside the library as ``ptxas.log``.  The library is written
-    under a temporary name and renamed, so a concurrent build never loads
-    a half-written file.
+    Every source compiles to an object in its own ``nvcc`` process, all
+    running at once; one more ``nvcc`` links them.  The compilers'
+    ``-Xptxas -v`` reports (registers, shared memory, spills) are kept
+    beside the library as ``ptxas.log``.  Objects and library are written
+    under temporary names, so a concurrent build never loads a half-written
+    file.  ``flags`` other than ``NVCC_FLAGS`` build a variant for a
+    measurement (``bench_torch/fmad_ab.py``); the wrappers load the default.
     """
-    out_dir = build_dir()
+    out_dir = build_dir(flags)
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    (out_dir / LOG_NAME).write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        cmds = [[nvcc, *flags, "-c", "-o", str(o), str(src)] for src, o in zip(SOURCES, objs)]
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            logs = list(pool.map(_run, cmds))
+        tmp_lib = Path(tmp) / LIB_NAME
+        _run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib), *map(str, objs)])
+        (out_dir / LOG_NAME).write_text("".join(logs))
+        os.replace(tmp_lib, lib)
     return lib
 
 
@@ -92,14 +109,19 @@ def ptxas_log() -> str:
     return (build_dir() / LOG_NAME).read_text()
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built library, with every function's ``argtypes`` set."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, with every function's ``argtypes`` set."""
+    """The kernel library the wrappers launch from (built at first use)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = load(build())
     return _LIB

@@ -1,5 +1,6 @@
-// Tricubic Lagrange interpolation on a periodic grid: the two kernels of the
-// registration solve's main path, for Hopper (sm_90a).
+// Tricubic Lagrange interpolation on a periodic grid, for Hopper (sm_90a):
+// the two kernels of the registration solve's main path, and the
+// single-field displace that resamples an image through a deformation.
 //
 //   tricubic_apply_f32          replaces src/repro/kernels/tricubic.py
 //                               _kernel_planned (entry tricubic_apply_pallas).
@@ -11,8 +12,15 @@
 //                               The same sum, with ib = floor(disp) and the
 //                               Lagrange weights built per point from one disp
 //                               shared by the C channels.
+//   tricubic_displace_f32       replaces src/repro/kernels/tricubic.py
+//                               _kernel (entry tricubic_displace_pallas).
+//                               One field at x + disp: the query point
+//                               q = x + disp is formed first and split into
+//                               floor(q) and q - floor(q), as the plain
+//                               version (ref.tricubic_displace) does.
 //
-// What they compute is kernels/ref.py (interp_apply, tricubic_displace_many):
+// What they compute is kernels/ref.py (interp_apply, tricubic_displace_many,
+// tricubic_displace):
 // periodic wrap by index arithmetic, so any displacement, any N1, N2, N3 and
 // any C.  The TPU kernels staged a tile plus a halo of 4 voxels and contracted
 // one-hot matrices on the MXU, which bounds |disp| by the halo and needs
@@ -23,16 +31,38 @@
 // bytes.  The planned apply reads C fields, 3 int32 bases and 12 f32 weights
 // per point and writes C outputs: (2C + 15) * 4 bytes per point against
 // 168 C flops.  The displace reads C fields and 3 displacements and writes C
-// outputs: (2C + 3) * 4 bytes per point against ~168 C + 60 flops.
+// outputs: (2C + 3) * 4 bytes per point against ~168 C + 60 flops.  The
+// single-field displace is the latter at C = 1: 20 bytes against ~234 flops.
 //
 // Design (the simple first one): one thread per output point.  It reads its
 // plan entries (or its displacement) once, wraps its 4 stencil indices per
 // axis once, and then for each channel does the 64 gathers through the
-// read-only cache, contracting in the oracle's order (axis 1, then 2, then 3)
-// in f32.  Neighbouring threads are neighbouring x3 points whose departure
+// read-only cache, contracting in the plain version's order (axis 1, then 2,
+// then 3, each sum left to right) in f32, under the
+// rounding contract below.  Neighbouring threads are neighbouring x3 points whose departure
 // points are close, so most gathers hit L1/L2; the plan and displacement
 // reads and the output writes are coalesced.  Channel offsets are 64-bit.
 // Shared-memory staging and several points per thread are later work.
+//
+// Rounding contract.  Kernel and plain version (kernels/ref.py) do the same
+// IEEE f32 operations in the same order, so they agree bit for bit:
+//   1. no product is fused into an add: build.py compiles with -fmad=false;
+//   2. every 4-term stencil sum is ((p0 + p1) + p2) + p3, over axis 1, then
+//      2, then 3: contract() here, ref._dot4 and ref._gather_contract there;
+//   3. the Lagrange weights are the expressions of lagrange() here and of
+//      ref.lagrange_weights there, term for term, with /6 as a product with
+//      the f32 reciprocal kSixth;
+//   4. the single-field displace forms q = x + disp before floor(q), as
+//      ref.tricubic_displace does; the batched displace splits disp itself.
+// Why: a solve whose PCG is preconditioned by the V-cycle (a few fixed inner
+// CG iterations, not a fixed linear operator) turns 1e-7 of roundoff into
+// other PCG counts, so the kernel path and the plain path take the same
+// iterations only when they round alike (ROADMAP Queue C 5).  A change to
+// either side changes both.  tests/test_torch_kernels.py checks the plain
+// side against a step-by-step f32 evaluation in this order and the build
+// flag; on the card chip_smoke.py's kernel_parity reports the kernels'
+// error against the plain versions (0 under the contract) and
+// ml_solve_parity fails when the counts part.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,15 +72,18 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
 
+constexpr float kSixth = 1.0f / 6.0f;
+
 __device__ __forceinline__ void lagrange(float t, float w[4]) {
   // same expressions, in the same order, as ref.lagrange_weights
-  w[0] = -t * (t - 1.0f) * (t - 2.0f) / 6.0f;
-  w[1] = (t + 1.0f) * (t - 1.0f) * (t - 2.0f) / 2.0f;
-  w[2] = -(t + 1.0f) * t * (t - 2.0f) / 2.0f;
-  w[3] = (t + 1.0f) * t * (t - 1.0f) / 6.0f;
+  w[0] = -t * (t - 1.0f) * (t - 2.0f) * kSixth;
+  w[1] = (t + 1.0f) * (t - 1.0f) * (t - 2.0f) * 0.5f;
+  w[2] = -(t + 1.0f) * t * (t - 2.0f) * 0.5f;
+  w[3] = (t + 1.0f) * t * (t - 1.0f) * kSixth;
 }
 
 // Contract the 4x4x4 stencil of one channel: rows r1[a] + r2[b] + r3[d].
+// Each sum is ((p0 + p1) + p2) + p3, the order of ref._dot4.
 __device__ __forceinline__ float contract(const float* __restrict__ f,
                                           const int64_t r1[4], const int64_t r2[4],
                                           const int64_t r3[4], const float w1[4],
@@ -60,23 +93,23 @@ __device__ __forceinline__ float contract(const float* __restrict__ f,
   for (int b = 0; b < 4; ++b) {
 #pragma unroll
     for (int d = 0; d < 4; ++d) {
-      float s = 0.0f;
+      float s = __ldg(f + r1[0] + r2[b] + r3[d]) * w1[0];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) s += __ldg(f + r1[a] + r2[b] + r3[d]) * w1[a];
+      for (int a = 1; a < 4; ++a) s += __ldg(f + r1[a] + r2[b] + r3[d]) * w1[a];
       s2[b][d] = s;
     }
   }
   float s3[4];
 #pragma unroll
   for (int d = 0; d < 4; ++d) {
-    float s = 0.0f;
+    float s = s2[0][d] * w2[0];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) s += s2[b][d] * w2[b];
+    for (int b = 1; b < 4; ++b) s += s2[b][d] * w2[b];
     s3[d] = s;
   }
-  float out = 0.0f;
+  float out = s3[0] * w3[0];
 #pragma unroll
-  for (int d = 0; d < 4; ++d) out += s3[d] * w3[d];
+  for (int d = 1; d < 4; ++d) out += s3[d] * w3[d];
   return out;
 }
 
@@ -144,6 +177,32 @@ displace_kernel(const float* __restrict__ fields, const float* __restrict__ disp
   }
 }
 
+// A kernel of its own rather than C = 1 of displace_kernel: its own register
+// count, its own row in a profile and its own launch counter.
+__global__ void __launch_bounds__(kThreads)
+field_warp_kernel(const float* __restrict__ field, const float* __restrict__ disp,
+                  float* __restrict__ out, int n1, int n2, int n3) {
+  const int64_t npts = (int64_t)n1 * n2 * n3;
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npts) return;
+  const int x3 = (int)(p % n3);
+  const int x2 = (int)((p / n3) % n2);
+  const int x1 = (int)(p / ((int64_t)n2 * n3));
+
+  // the query point in grid units, as ref.tricubic_displace forms it
+  const float q1 = (float)x1 + __ldg(disp + p);
+  const float q2 = (float)x2 + __ldg(disp + npts + p);
+  const float q3 = (float)x3 + __ldg(disp + 2 * npts + p);
+  const float f1 = floorf(q1), f2 = floorf(q2), f3 = floorf(q3);
+  float w1[4], w2[4], w3[4];
+  lagrange(q1 - f1, w1);
+  lagrange(q2 - f2, w2);
+  lagrange(q3 - f3, w3);
+  int64_t r1[4], r2[4], r3[4];
+  rows(0, 0, 0, (int)f1, (int)f2, (int)f3, n1, n2, n3, r1, r2, r3);
+  out[p] = contract(field, r1, r2, r3, w1, w2, w3);
+}
+
 unsigned int blocks_for(int n1, int n2, int n3) {
   const int64_t npts = (int64_t)n1 * n2 * n3;
   return (unsigned int)((npts + kThreads - 1) / kThreads);
@@ -167,5 +226,12 @@ extern "C" int tricubic_displace_many_f32(const void* fields, const void* disp, 
                                           void* stream) {
   displace_kernel<<<blocks_for(n1, n2, n3), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)fields, (const float*)disp, (float*)out, channels, n1, n2, n3);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tricubic_displace_f32(const void* field, const void* disp, void* out, int n1,
+                                     int n2, int n3, void* stream) {
+  field_warp_kernel<<<blocks_for(n1, n2, n3), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)field, (const float*)disp, (float*)out, n1, n2, n3);
   return (int)cudaGetLastError();
 }

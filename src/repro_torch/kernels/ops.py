@@ -5,6 +5,7 @@
 solver-wide interpolation protocol::
 
     interp(fields, disp)             fields (..., N1,N2,N3) at x + disp
+                                     (a 3-D field: the single-field kernel)
     interp.make_plan(disp)           -> InterpPlan (precomputed operators)
     interp.apply_plan(fields, plan)  planned apply
 
@@ -22,7 +23,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.tricubic import tricubic_apply_cuda, tricubic_displace_many_cuda
+from repro_torch.kernels.tricubic import (
+    tricubic_apply_cuda,
+    tricubic_displace_cuda,
+    tricubic_displace_many_cuda,
+)
 
 METHODS = ("auto", "cuda", "ref")
 
@@ -38,6 +43,13 @@ def _use_kernel(method: str, t: torch.Tensor) -> bool:
             raise ValueError(f"interp method 'cuda' needs CUDA tensors, got device {t.device}")
         return True
     raise ValueError(f"unknown interp method {method!r}; expected one of {METHODS}")
+
+
+def tricubic_displace(field: torch.Tensor, disp: torch.Tensor, *, method: str = "auto"):
+    """``field`` (N1,N2,N3) sampled at x + ``disp`` (3, N1,N2,N3), grid units."""
+    if not _use_kernel(method, field):
+        return ref.tricubic_displace(field, disp)
+    return tricubic_displace_cuda(field.contiguous(), disp.contiguous())
 
 
 def tricubic_displace_many(
@@ -63,6 +75,8 @@ class Interp:
         self.method = method
 
     def __call__(self, fields: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+        if fields.ndim == 3:
+            return tricubic_displace(fields, disp, method=self.method)
         return tricubic_displace_many(fields, disp, method=self.method)
 
     def make_plan(self, disp: torch.Tensor) -> ref.InterpPlan:

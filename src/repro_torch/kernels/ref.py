@@ -26,6 +26,7 @@ import torch
 
 # points per gather chunk: (4,4,4,CHUNK) int64 indices are 2 GiB at 2^22
 CHUNK = 1 << 22
+_SIXTH = 1.0 / 6.0
 
 
 def lagrange_weights(t: torch.Tensor) -> torch.Tensor:
@@ -34,11 +35,21 @@ def lagrange_weights(t: torch.Tensor) -> torch.Tensor:
     Returns shape (4, *t.shape); rows sum to 1 for any t.
     """
     t = t.to(torch.promote_types(t.dtype, torch.float32))
-    w_m1 = -t * (t - 1.0) * (t - 2.0) / 6.0
-    w_0 = (t + 1.0) * (t - 1.0) * (t - 2.0) / 2.0
-    w_1 = -(t + 1.0) * t * (t - 2.0) / 2.0
-    w_2 = (t + 1.0) * t * (t - 1.0) / 6.0
+    # /6 is a product with the f32 reciprocal: the rounding contract at the
+    # head of csrc/tricubic.cu
+    w_m1 = -t * (t - 1.0) * (t - 2.0) * _SIXTH
+    w_0 = (t + 1.0) * (t - 1.0) * (t - 2.0) * 0.5
+    w_1 = -(t + 1.0) * t * (t - 2.0) * 0.5
+    w_2 = (t + 1.0) * t * (t - 1.0) * _SIXTH
     return torch.stack([w_m1, w_0, w_1, w_2])
+
+
+def _dot4(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``sum_k v[k] * w[k]`` over the leading stencil axis of length 4, added
+    in the order ``((p0 + p1) + p2) + p3``, as the rounding contract at the
+    head of ``csrc/tricubic.cu`` fixes it for kernel and plain version."""
+    p = v * w
+    return ((p[0] + p[1]) + p[2]) + p[3]
 
 
 class InterpPlan(NamedTuple):
@@ -73,8 +84,10 @@ def _gather_contract(flat_fields, base, w, shape3):
 
     ``flat_fields`` (C, Ntot) on a periodic ``shape3`` grid; ``base`` (3, M)
     integer stencil bases (the offset -1 row sits at ``base - 1``); ``w``
-    (3, 4, M) weights.  Returns (C, M).  The contraction order is the
-    oracle's: stencil axis 1, then axis 2, then axis 3.
+    (3, 4, M) weights.  Returns (C, M).  The contraction runs over stencil
+    axis 1, then axis 2, then axis 3, each sum by ``_dot4``: under the
+    rounding contract of ``csrc/tricubic.cu`` the kernels reproduce these
+    values bit for bit.
     """
     n1, n2, n3 = shape3
     c, m = flat_fields.shape[0], base.shape[1]
@@ -93,9 +106,9 @@ def _gather_contract(flat_fields, base, w, shape3):
         w0, w1, w2 = w[0, :, lo:hi], w[1, :, lo:hi], w[2, :, lo:hi]
         for ci in range(c):
             vals = flat_fields[ci][idx].reshape(4, 4, 4, hi - lo)
-            s = torch.sum(vals * w0[:, None, None, :], dim=0)  # (4, 4, M)
-            s = torch.sum(s * w1[:, None, :], dim=0)  # (4, M)
-            out[ci, lo:hi] = torch.sum(s * w2, dim=0)
+            s = _dot4(vals, w0[:, None, None, :])  # (4, 4, M)
+            s = _dot4(s, w1[:, None, :])  # (4, M)
+            out[ci, lo:hi] = _dot4(s, w2)
     return out
 
 

@@ -8,6 +8,10 @@ Counterpart of ``repro/kernels/tricubic.py``:
 * ``tricubic_displace_many_cuda(fields, disp)`` replaces
   ``tricubic_displace_pallas_many`` (body ``_kernel_many``): the RK2
   departure solve.  Plain version: ``ref.tricubic_displace_many``.
+* ``tricubic_displace_cuda(field, disp)`` replaces
+  ``tricubic_displace_pallas`` (body ``_kernel``): one field resampled at
+  x + disp, e.g. the template through a returned deformation.  Plain
+  version: ``ref.tricubic_displace``.
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates the output, launches on the current stream, raises
@@ -24,7 +28,7 @@ from repro_torch.kernels.ref import InterpPlan
 
 # launches per kernel since the last reset_launches(): a run reads these to
 # show that its path went through the kernels
-LAUNCHES = {"tricubic_apply": 0, "tricubic_displace_many": 0}
+LAUNCHES = {"tricubic_apply": 0, "tricubic_displace_many": 0, "tricubic_displace": 0}
 
 
 def reset_launches() -> None:
@@ -96,4 +100,22 @@ def tricubic_displace_many_cuda(fields: torch.Tensor, disp: torch.Tensor) -> tor
         )
     _raise_on(code, "tricubic_displace_many_f32")
     LAUNCHES["tricubic_displace_many"] += 1
+    return out
+
+
+def tricubic_displace_cuda(field: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+    """Single-field displace: ``field`` (N1,N2,N3) f32 at x + ``disp`` (3, N..)."""
+    if field.ndim != 3:
+        raise ValueError(f"field must be (N1, N2, N3), got shape {tuple(field.shape)}")
+    _, n1, n2, n3 = _check_fields(field.unsqueeze(0))
+    _check("disp", disp, torch.float32, (3, n1, n2, n3), field.device)
+    lib = build.library()
+    out = torch.empty_like(field)
+    with torch.cuda.device(field.device):
+        code = lib.tricubic_displace_f32(
+            field.data_ptr(), disp.data_ptr(), out.data_ptr(), n1, n2, n3,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(code, "tricubic_displace_f32")
+    LAUNCHES["tricubic_displace"] += 1
     return out

@@ -1,6 +1,7 @@
-"""Minimal telemetry for the port: spans, counters, and the ``newton_iter``
-and ``solve`` records of ``repro.telemetry``'s schema v1 (same field names,
-so ``repro.analysis.trace_report`` reads the port's traces).
+"""Minimal telemetry for the port: spans, counters, and the ``newton_iter``,
+``level_start``, ``level`` and ``solve`` records of ``repro.telemetry``'s
+schema v1 (same field names, so ``repro.analysis.trace_report`` reads the
+port's traces).  ``annotate`` names a region in ``torch.profiler`` traces.
 
 Off by default: with no sink installed a span reads no clock and does not
 synchronise, and ``emit`` builds no record.  A sink is any object with a
@@ -107,6 +108,33 @@ class NewtonIterEvent(Event):
 
 
 @dataclasses.dataclass
+class LevelEvent(Event):
+    """One completed ladder level of ``multilevel.solve``."""
+
+    kind: ClassVar[str] = "level"
+    level: int
+    shape: list
+    betas: list
+    warm_start: bool
+    newton_iters: int
+    hessian_matvecs: int
+    fine_equiv_matvecs: float
+    precond_fine_equiv_matvecs: float
+    wall_s: float
+    rel_gnorm: float | None = None
+
+
+@dataclasses.dataclass
+class LevelStartEvent(Event):
+    kind: ClassVar[str] = "level_start"
+    level: int
+    n_levels: int
+    shape: list
+    betas: list
+    warm_start: bool
+
+
+@dataclasses.dataclass
 class CounterEvent(Event):
     kind: ClassVar[str] = "counter"
     name: str
@@ -139,6 +167,12 @@ def emit(event: Event, echo: bool = False) -> dict | None:
     if echo:
         print(rec)
     return rec
+
+
+def annotate(name: str) -> torch.profiler.record_function:
+    """Name a region in ``torch.profiler`` traces; usable as a context
+    manager or a decorator.  Changes nothing that is computed."""
+    return torch.profiler.record_function(name)
 
 
 def counter(name: str, value: float = 1.0, **attrs) -> float:

@@ -6,18 +6,22 @@ Run on a machine with a CUDA card:
 
 Each kernel is held against its plain PyTorch version on the card, at
 small shapes (cubic, non-cubic with N3 % 8 != 0, displacements beyond any
-halo), and the default solve is shown to launch both kernels.  Whether a
+halo), and the default solve and a coarse-to-fine solve are shown to
+launch the tricubic kernels.  Whether a
 card is present is decided inside the ``cuda`` fixture, so every worker
 collects the same tests; without a card they skip.  Imports neither JAX
 nor the JAX package.
 """
+import dataclasses
+
 import pytest
 import torch
 
 from repro_torch.core import gauss_newton as gn
 from repro_torch.core.registration import RegistrationConfig, register
 from repro_torch.data import synthetic
-from repro_torch.kernels import ops, ref, tricubic
+from repro_torch.kernels import ops, ref, spectral_diag, tricubic
+from repro_torch.multilevel import MultilevelConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -56,6 +60,27 @@ def test_displace_kernel_matches_plain(cuda, shape, c):
     torch.testing.assert_close(got, ref.tricubic_displace_many(f, d), atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_single_field_displace_kernel_matches_plain(cuda, shape):
+    f, d = _inputs(cuda, shape, 1)
+    got = tricubic.tricubic_displace_cuda(f[0], d)
+    torch.testing.assert_close(got, ref.tricubic_displace(f[0], d), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 128), (16, 8, 256), (12, 20, 9)])
+@pytest.mark.parametrize("betas", [(1.0,), (1e-2, 1.0)])
+def test_biharmonic_kernel_matches_plain(cuda, shape, betas):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    re, im = (torch.randn(shape, generator=gen, device=cuda) for _ in range(2))
+    spectral_diag.reset_launches()
+    got = spectral_diag.biharmonic_scale(re, im, betas)
+    assert spectral_diag.LAUNCHES == {"biharmonic_scale": 1}
+    for g, w in zip(got, spectral_diag.biharmonic_scale_ref(re, im, betas)):
+        torch.testing.assert_close(g, w, atol=0, rtol=2e-5)
+    with pytest.raises(ValueError, match="betas"):
+        spectral_diag.biharmonic_scale_cuda(re, im, tuple(range(1, 10)))
+
+
 def test_kernels_exact_at_grid_points(cuda):
     f, _ = _inputs(cuda, (8, 12, 10), 2)
     d = torch.randint(-20, 20, (3, 8, 12, 10), device=cuda).float()
@@ -87,10 +112,14 @@ def test_auto_dispatch_launches_kernels(cuda):
     tricubic.reset_launches()
     interp(f, d)
     interp.apply_plan(f, interp.make_plan(d))
-    assert tricubic.LAUNCHES == {"tricubic_apply": 1, "tricubic_displace_many": 1}
+    interp(f[0], d)
+    assert tricubic.LAUNCHES == {
+        "tricubic_apply": 1, "tricubic_displace_many": 1, "tricubic_displace": 1
+    }
     tricubic.reset_launches()
     ops.make_interp("ref").apply_plan(f, interp.make_plan(d))
-    assert tricubic.LAUNCHES == {"tricubic_apply": 0, "tricubic_displace_many": 0}
+    ops.make_interp("ref")(f[0], d)
+    assert all(n == 0 for n in tricubic.LAUNCHES.values())
 
 
 def test_default_register_runs_through_kernels(cuda):
@@ -104,6 +133,29 @@ def test_default_register_runs_through_kernels(cuda):
         rho_R, rho_T, RegistrationConfig(solver=gn.GNConfig(interp_method="ref")),
         grid=grid, device=cuda,
     )
+    assert [h["cg_iters"] for h in out["history"]] == [
+        h["cg_iters"] for h in ref_out["history"]
+    ]
+    assert float((out["v"] - ref_out["v"]).abs().max()) < 1e-4
+
+
+def test_multilevel_register_runs_through_kernels(cuda):
+    rho_R, rho_T, grid = synthetic.brain_like(32, device=cuda)
+    solver = gn.GNConfig(beta=1e-3, beta_continuation=(1e-1, 1e-2), max_newton=8, max_cg=40)
+    cfg = RegistrationConfig(multilevel=MultilevelConfig(solver=solver, n_levels=3,
+                                                         precond="vcycle"))
+    tricubic.reset_launches()
+    out = register(rho_R, rho_T, cfg, grid=grid, device=cuda)
+    assert tricubic.LAUNCHES["tricubic_apply"] > 0
+    assert tricubic.LAUNCHES["tricubic_displace_many"] > 0
+    assert [lv["shape"] for lv in out["levels"]] == [[8] * 3, [16] * 3, [32] * 3]
+    assert out["det_min"] > 0
+    tricubic.reset_launches()
+    ref_cfg = RegistrationConfig(multilevel=MultilevelConfig(
+        solver=dataclasses.replace(solver, interp_method="ref"), n_levels=3,
+        precond="vcycle"))
+    ref_out = register(rho_R, rho_T, ref_cfg, grid=grid, device=cuda)
+    assert all(n == 0 for n in tricubic.LAUNCHES.values())
     assert [h["cg_iters"] for h in out["history"]] == [
         h["cg_iters"] for h in ref_out["history"]
     ]

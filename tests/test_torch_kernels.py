@@ -20,6 +20,7 @@ import torch  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.tricubic import (  # noqa: E402
     tricubic_apply_pallas,
+    tricubic_displace_pallas,
     tricubic_displace_pallas_many,
 )
 from repro_torch import convert  # noqa: E402
@@ -113,6 +114,68 @@ def test_chunked_gather_matches_one_chunk(rng, monkeypatch):
     np.testing.assert_array_equal(ref.interp_apply(_t(f), plan).numpy(), whole.numpy())
 
 
+def _stepwise_sum4(p):
+    """((p0 + p1) + p2) + p3 in numpy float32, each addition rounded."""
+    return ((p[0] + p[1]) + p[2]) + p[3]
+
+
+def _stepwise_lagrange(t):
+    """The Lagrange weights term for term, each f32 operation rounded (numpy),
+    with /6 as a product with the f32 reciprocal."""
+    sixth, half, one, two = (np.float32(x) for x in (1.0 / 6.0, 0.5, 1.0, 2.0))
+    return np.stack([
+        -t * (t - one) * (t - two) * sixth,
+        (t + one) * (t - one) * (t - two) * half,
+        -(t + one) * t * (t - two) * half,
+        (t + one) * t * (t - one) * sixth,
+    ])
+
+
+def test_rounding_contract_dot4_order(rng):
+    """ref._dot4 adds in the kernels' order (the rounding contract of
+    csrc/tricubic.cu), bit for bit; another order rounds differently."""
+    v = (rng.standard_normal((4, 4096)) * 10.0 ** rng.integers(-3, 4, (4, 4096)))
+    v = v.astype(np.float32)
+    w = rng.uniform(-0.2, 1.2, (4, 4096)).astype(np.float32)
+    want = _stepwise_sum4(v * w)
+    np.testing.assert_array_equal(ref._dot4(_t(v), _t(w)).numpy(), want)
+    assert not np.array_equal(_stepwise_sum4((v * w)[::-1]), want)
+
+
+def test_rounding_contract_lagrange_weights(rng):
+    t = rng.uniform(0.0, 1.0, 4096).astype(np.float32)
+    want = _stepwise_lagrange(t)
+    np.testing.assert_array_equal(ref.lagrange_weights(_t(t)).numpy(), want)
+    divided = (t + np.float32(1)) * t * (t - np.float32(1)) / np.float32(6)
+    assert not np.array_equal(divided, want[3])
+
+
+def test_rounding_contract_planned_apply(rng):
+    """The plain planned apply is the kernels' contraction evaluated step by
+    step in f32: axis 1, then 2, then 3, each sum in _stepwise_sum4's order."""
+    shape = (5, 6, 7)
+    f, d = _problem(rng, shape, 1, lim=9.0)
+    plan = ref.make_interp_plan(_t(d))
+    ib, w = plan.ib.numpy(), plan.w.numpy()
+    home = np.stack(np.meshgrid(*[np.arange(n) for n in shape], indexing="ij"))
+    idx = [[(home[i] + ib[i] + a - 1) % shape[i] for a in range(4)] for i in range(3)]
+    s2 = [[_stepwise_sum4([f[0][idx[0][a], idx[1][b], idx[2][e]] * w[0, a]
+                           for a in range(4)]) for e in range(4)] for b in range(4)]
+    s3 = [_stepwise_sum4([s2[b][e] * w[1, b] for b in range(4)]) for e in range(4)]
+    want = _stepwise_sum4([s3[e] * w[2, e] for e in range(4)])
+    np.testing.assert_array_equal(ref.interp_apply(_t(f), plan).numpy()[0], want)
+
+
+def test_rounding_contract_build_flag():
+    """The kernels are built without FMA contraction, the contract is stated
+    in the kernels' source, and a build with other flags has its own
+    directory."""
+    assert "-fmad=false" in build.NVCC_FLAGS
+    assert "Rounding contract." in build.SOURCES[0].read_text()
+    fused = tuple("-fmad=true" if f == "-fmad=false" else f for f in build.NVCC_FLAGS)
+    assert build.build_dir(fused) != build.build_dir()
+
+
 @pytest.mark.parametrize("c", [1, 2])
 def test_plain_kernels_match_pallas_interpret(rng, c):
     """Against the TPU kernels in interpret mode, at a tile-divisible shape
@@ -128,6 +191,33 @@ def test_plain_kernels_match_pallas_interpret(rng, c):
     )
     got = ref.tricubic_displace_many(_t(f), _t(d))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("halo", [2, 4, 6])
+def test_plain_single_field_displace_matches_jax_and_pallas(rng, halo):
+    """K3's plain version against the JAX oracle and the TPU kernel in
+    interpret mode (the cases of tests/test_kernels.py's halo sweep)."""
+    shape, tile = (16, 16, 32), (8, 8, 16)
+    f = rng.standard_normal(shape).astype(np.float32)
+    d = rng.uniform(-halo + 0.05, halo - 0.05, (3,) + shape).astype(np.float32)
+    got = ops.tricubic_displace(_t(f), _t(d)).numpy()
+    want = tricubic_displace_pallas(
+        jnp.asarray(f), jnp.asarray(d), tile=tile, halo=halo, interpret=True
+    )
+    np.testing.assert_allclose(got, np.asarray(want), **KERNEL_TOL)
+    want = jref.tricubic_displace(jnp.asarray(f), jnp.asarray(d))
+    np.testing.assert_allclose(got, np.asarray(want), **KERNEL_TOL)
+
+
+def test_plain_single_field_displace_zero_disp_exact(rng):
+    shape = (8, 8, 32)
+    f = rng.standard_normal(shape).astype(np.float32)
+    zero = np.zeros((3,) + shape, np.float32)
+    want = tricubic_displace_pallas(
+        jnp.asarray(f), jnp.asarray(zero), tile=(4, 4, 16), halo=2, interpret=True
+    )
+    np.testing.assert_allclose(np.asarray(want), f, atol=1e-6)
+    np.testing.assert_allclose(ref.tricubic_displace(_t(f), _t(zero)).numpy(), f, atol=1e-6)
 
 
 def test_plan_from_numpy_carries_the_jax_plan(rng):
@@ -149,7 +239,11 @@ def test_auto_takes_plain_version_on_cpu(rng):
     plan = interp.make_plan(_t(d))
     torch.testing.assert_close(interp.apply_plan(_t(f), plan), ref.interp_apply(_t(f), plan))
     torch.testing.assert_close(interp(_t(f), _t(d)), ref.tricubic_displace_many(_t(f), _t(d)))
-    assert tricubic.LAUNCHES == {"tricubic_apply": 0, "tricubic_displace_many": 0}
+    # a 3-D field takes the single-field path, as in the reference
+    torch.testing.assert_close(interp(_t(f[0]), _t(d)), ref.tricubic_displace(_t(f[0]), _t(d)))
+    assert tricubic.LAUNCHES == {
+        "tricubic_apply": 0, "tricubic_displace_many": 0, "tricubic_displace": 0
+    }
 
 
 def test_cuda_method_and_wrappers_refuse_cpu_tensors(rng):
@@ -163,6 +257,10 @@ def test_cuda_method_and_wrappers_refuse_cpu_tensors(rng):
         tricubic.tricubic_apply_cuda(_t(f), plan)
     with pytest.raises(ValueError, match="CUDA"):
         tricubic.tricubic_displace_many_cuda(_t(f), _t(d))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.make_interp("cuda")(_t(f[0]), _t(d))
+    with pytest.raises(ValueError, match="CUDA"):
+        tricubic.tricubic_displace_cuda(_t(f[0]), _t(d))
     with pytest.raises(ValueError, match="method"):
         ops.make_interp("pallas")
 
@@ -184,11 +282,16 @@ def test_build_is_keyed_by_source_and_ignored_by_git():
     with open(os.path.join(ROOT, ".gitignore")) as f:
         assert "build/" in f.read().split()
     src = build.SOURCES[0].read_text()
-    for name in ("tricubic_apply_f32", "tricubic_displace_many_f32"):
+    for name in ("tricubic_apply_f32", "tricubic_displace_many_f32", "tricubic_displace_f32"):
         assert f'extern "C" int {name}(' in src
         assert name in build.SIGNATURES
-    for replaced in ("_kernel_planned", "_kernel_many"):
+    for replaced in ("_kernel_planned", "_kernel_many", "_kernel "):
         assert replaced in src
+    src = build.SOURCES[1].read_text()
+    assert 'extern "C" int biharmonic_scale_f32(' in src
+    assert "biharmonic_scale_f32" in build.SIGNATURES
+    assert "spectral_diag.py _kernel" in src
+    assert all(s.parent == build.CSRC and s.is_file() for s in build.SOURCES)
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -197,7 +300,7 @@ def test_port_imports_neither_jax_nor_repro():
     import re
 
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "bench_torch", "fmad_ab.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     offenders = [p for p in files if pattern.search(open(p).read())]
@@ -211,8 +314,29 @@ def test_port_imports_neither_jax_nor_repro():
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
         "import importlib\n"
         f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
-        "import chip_smoke\n"
+        "import chip_smoke, fmad_ab\n"
     )
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"), ROOT]))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT, os.path.join(ROOT, "bench_torch")]))
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_fmad_ab_flips_one_flag_and_needs_a_card():
+    """The A/B build differs from the port's only in FMA contraction, and
+    the script refuses to run without a card."""
+    script = os.path.join(ROOT, "bench_torch", "fmad_ab.py")
+    sys.path.insert(0, os.path.dirname(script))
+    try:
+        import fmad_ab
+    finally:
+        sys.path.remove(os.path.dirname(script))
+    flipped = [(a, b) for a, b in zip(fmad_ab.VARIANTS["fmad_false"], fmad_ab.VARIANTS["fmad_true"])
+               if a != b]
+    assert fmad_ab.VARIANTS["fmad_false"] == build.NVCC_FLAGS
+    assert flipped == [("-fmad=false", "-fmad=true")]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, script, "--n", "8"], env=env, capture_output=True,
+                          text=True)
+    assert proc.returncode != 0 and "CUDA card" in proc.stderr
+    assert proc.stdout == ""

@@ -28,10 +28,12 @@ from repro.core.registration import RegistrationConfig as JConfig  # noqa: E402
 from repro.core.registration import register as jregister  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
 from repro.resilience import health as jhealth  # noqa: E402
-from repro_torch import convert, telemetry  # noqa: E402
+from repro_torch import convert, multilevel, telemetry  # noqa: E402
 from repro_torch.core import gauss_newton as gn  # noqa: E402
+from repro_torch.core.grid import make_grid  # noqa: E402
 from repro_torch.core.registration import RegistrationConfig, register  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.multilevel import MultilevelConfig  # noqa: E402
 from repro_torch.resilience import health  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -154,10 +156,15 @@ def test_unported_options_raise(kw):
 
 
 def test_unported_registration_modes_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        RegistrationConfig(multilevel=object())
+    """``blocks`` and the mesh are not ported; ``multilevel`` is
+    (tests/test_torch_multilevel.py), and with ``blocks`` it is refused as
+    in the reference."""
     with pytest.raises(NotImplementedError, match="item 11"):
         RegistrationConfig(blocks=object())
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        RegistrationConfig(multilevel=MultilevelConfig(), blocks=object())
+    with pytest.raises(NotImplementedError, match="item 13"):
+        multilevel.solve(None, None, make_grid(8), MultilevelConfig(), ctx=object())
     with pytest.raises(ValueError, match="interp_method"):
         gn.GNConfig(interp_method="pallas")
 
