@@ -24,6 +24,10 @@ Prints the card's name and power limit, one JSON line per round and a last
 JSON line with each variant's median ms, the ratio of the medians, the
 registers ``ptxas`` gave each kernel, and the max abs error against the
 plain version.  Needs one CUDA card and ``nvcc``.
+
+The module also holds the measurement helpers that ``tricubic_ab.py``,
+``chip_smoke.py`` and the port's tests share: ``time_ms``,
+``smooth_disp`` and ``raw_launcher``.
 """
 from __future__ import annotations
 
@@ -62,8 +66,10 @@ def _registers(log: str) -> dict:
     return regs
 
 
-def _time_ms(fn, reps: int) -> float:
-    for _ in range(2):
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean ms of ``fn()`` over ``reps`` calls, by CUDA events, after
+    ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -75,16 +81,55 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _smooth_disp(n: int, max_disp: float, gen: torch.Generator, dev) -> torch.Tensor:
-    """(3, n, n, n): a few periodic low modes scaled to ``max_disp`` voxels."""
-    x = torch.arange(n, device=dev, dtype=torch.float32) * (2 * math.pi / n)
-    x1, x2, x3 = torch.meshgrid(x, x, x, indexing="ij")
+def smooth_disp(shape, max_disp: float, gen: torch.Generator, dev) -> torch.Tensor:
+    """(3, N1, N2, N3) f32: a few periodic low modes (wave numbers 1 and 2)
+    scaled to at most ``max_disp`` voxels, phases drawn from ``gen``."""
+    axes = [torch.arange(n, device=dev, dtype=torch.float32) * (2 * math.pi / n) for n in shape]
+    x1, x2, x3 = torch.meshgrid(*axes, indexing="ij")
     ph = torch.rand((3, 3), generator=gen, device=dev) * (2 * math.pi)
     d = torch.stack([
         torch.sin(x2 + ph[i, 0]) * torch.cos(x3 + ph[i, 1]) + 0.5 * torch.sin(2 * x1 + ph[i, 2])
         for i in range(3)
     ])
     return (d * (max_disp / d.abs().max())).contiguous()
+
+
+def raw_launcher(lib, name: str, f, disp=None, plan=None, counter=None, staged_arg: bool = True):
+    """A function that launches one tricubic kernel of ``lib`` by a direct
+    call of its C entry point on the current stream, into an output
+    allocated here, and returns that output.  A timing of it leaves out the
+    wrappers' host work (checks, allocation), which at 64^3 takes longer
+    than the kernel.  ``name``, a key of ``tricubic.LAUNCHES``:
+    "tricubic_apply" (K1, ``plan``), "tricubic_displace_many" (K2,
+    ``disp``) or "tricubic_displace" (K3, ``f`` of shape (1, N..), ``disp``).
+    ``counter``: the staged-tile counter of K1 and K2; ``staged_arg=False``
+    for a library whose entry points take none (the first design).  The
+    function holds every tensor whose pointer it passes: a closure that
+    kept only ``data_ptr()`` would let a tensor be freed and the kernel read
+    whatever the allocator put there next."""
+    c, n1, n2, n3 = f.shape
+    out = torch.empty_like(f)
+    stream = torch.cuda.current_stream().cuda_stream
+    extra = (None if counter is None else counter.data_ptr(),) if staged_arg else ()
+    if name == "tricubic_apply":
+        fn = lib.tricubic_apply_f32
+        args = (f.data_ptr(), plan.ib.data_ptr(), plan.w.data_ptr(), out.data_ptr(), c, n1, n2,
+                n3, *extra, stream)
+    elif name == "tricubic_displace_many":
+        fn = lib.tricubic_displace_many_f32
+        args = (f.data_ptr(), disp.data_ptr(), out.data_ptr(), c, n1, n2, n3, *extra, stream)
+    else:
+        fn = lib.tricubic_displace_f32
+        args = (f.data_ptr(), disp.data_ptr(), out.data_ptr(), n1, n2, n3, stream)
+    held = (f, disp, plan, out, counter)
+
+    def launch():
+        code = fn(*args)
+        if code != 0:
+            raise RuntimeError(f"{name} launch failed: cudaGetLastError() = {code}")
+        return held[3]
+
+    return launch
 
 
 def main() -> int:
@@ -115,7 +160,7 @@ def main() -> int:
     n = args.n
     f3 = torch.randn((3, n, n, n), generator=gen, device=dev)
     f2 = f3[:2].contiguous()
-    disp = _smooth_disp(n, args.max_disp, gen, dev)
+    disp = smooth_disp((n, n, n), args.max_disp, gen, dev)
     plan = ref.make_interp_plan(disp)
     cases = {
         "K1_apply_C2": (lambda: tricubic.tricubic_apply_cuda(f2, plan),
@@ -143,7 +188,7 @@ def main() -> int:
         for name in (order if r % 2 == 0 else order[::-1]):
             build._LIB = libs[name]
             for case, (kern, _) in cases.items():
-                ms = _time_ms(kern, args.reps)
+                ms = time_ms(kern, args.reps)
                 times[name][case].append(ms)
                 row[f"{name}/{case}"] = ms
         print(json.dumps({"round": r, "ms": row}), flush=True)

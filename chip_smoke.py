@@ -18,8 +18,16 @@ before it and read just after:
 * ``spectral``: the fused biharmonic scaling of a 256^3 spectrum.
 
 The launches of K1 and K2 on the solve paths must equal the counts derived
-from the code.  Then it times the kernels beside their bounds and profiles
-one more Newton iteration by kernel class.  Every phase prints one JSON
+from the code.  K1 and K2 stage a tile's stencil box in shared memory where
+it is small enough: on random displacements (``kernel_parity``), on smooth
+ones and on the solve's own fields (``kernel_parity_solve``) they must
+equal their plain versions bit for bit and stage as many tiles as the
+plain model ``tricubic.staged_tiles`` says; on ``main_path`` and
+``multilevel_path`` every launch counts its staged tiles
+(``tricubic.count_staged``), and each kernel must stage at least
+``MIN_PATH_STAGED_SHARE`` of its tiles at each grid size.  Then it times the kernels
+beside their bounds (K1 and K2 also at 64^3 and 128^3) and profiles one
+more Newton iteration by kernel class.  Every phase prints one JSON
 line; any failed phase ends the run with a nonzero exit code.  The last
 line is ``{"ok": true, "device": {...}}``.
 
@@ -40,13 +48,24 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "bench_torch"))  # fmad_ab: shared timing helpers
 
 SEED = 0
 N_MAIN = 256
 N_SOLVE_PARITY = 64
 NONCUBIC = (40, 48, 36)  # N3 % 8 != 0: no tile condition
 MAX_DISP = 12.0  # voxels, beyond the TPU kernels' halo of 4
-ATOL, RTOL = 2e-5, 1e-4  # kernel against plain version (tests/test_kernels.py)
+# smooth displacements: at most SMOOTH_DISP voxels at 256^3, scaled by n/256
+# (a transport step's departure field moves ~2 voxels at 256^3), and a
+# rougher one of NONCUBIC_SMOOTH_DISP voxels on the non-cubic grid
+SMOOTH_DISP = 2.0
+NONCUBIC_SMOOTH_DISP = 16.0
+TIME_SIZES = (64, 128, N_MAIN)  # the ladder's grids
+# the share of K1's and of K2's tiles a solve path must stage at each grid
+# size: with the rest at the unstaged branch's slowest measured cost (random
+# displacements; PERF.md section 6, the same-call A/B) the launches
+# still take less time than the first design's, at each of TIME_SIZES
+MIN_PATH_STAGED_SHARE = 0.96
 V_TOL = 1e-4  # solve parity: max |v_kernel - v_ref|
 MAX_NEWTON = 3
 # examples/multilevel_registration.py: 3-level ladder, V-cycle preconditioner
@@ -169,6 +188,9 @@ def phase_build() -> None:
     require(set(per_kernel) >= {k["symbol"] for k in KERNELS.values()},
             f"ptxas report lacks a kernel: {log}")
     emit("build", seconds=secs, dir=str(build.build_dir()), ptxas=per_kernel)
+    spills = {k: v for k, v in per_kernel.items()
+              if v.get("spill_stores", 0) or v.get("spill_loads", 0)}
+    require(not spills, f"ptxas spilled registers: {spills}")
 
 
 # --------------------------------------------------------------------------- #
@@ -179,17 +201,53 @@ def _inputs(shape, c, gen, dev):
 
 
 def _compare(got, want) -> float:
-    err = (got - want).abs()
-    ok = bool(torch.all(err <= ATOL + RTOL * want.abs()))
-    require(ok, f"kernel disagrees with plain version: max abs err {float(err.max())}")
-    return float(err.max())
+    """The kernels equal their plain versions bit for bit (the rounding
+    contract of csrc/tricubic.cu)."""
+    err = float((got - want).abs().max())
+    require(err == 0.0, f"kernel disagrees with plain version: max abs err {err}")
+    return err
+
+
+def _tile_case(name, f, disp, plan=None) -> dict:
+    """One K1 (``plan``, made from ``disp``) or K2 (``disp``) launch with the
+    staged-tile counter, against its plain version on the same inputs: bit
+    for bit, and as many staged tiles as the plain model counts."""
+    from repro_torch.kernels import ref, tricubic
+
+    with tricubic.count_staged() as counts:
+        if name == "tricubic_apply":
+            got = tricubic.tricubic_apply_cuda(f, plan)
+            base = plan.ib
+        else:
+            got = tricubic.tricubic_displace_many_cuda(f, disp)
+            base = torch.floor(disp).to(torch.int32)
+    want = (ref.interp_apply(f, plan) if name == "tricubic_apply"
+            else ref.tricubic_displace_many(f, disp))
+    torch.cuda.synchronize()
+    err = _compare(got, want)
+    del got, want
+    kernel = counts[(name, tuple(f.shape[1:]))]["staged"]
+    model = tricubic.staged_tiles(base)
+    tiles = tricubic.n_tiles(f.shape[1:])
+    require(kernel == model, f"{name} staged {kernel} tiles, the model {model}")
+    extent = tricubic.tile_extents(base)
+    return {"kernel": name, "shape": list(f.shape[1:]), "C": int(f.shape[0]),
+            "max_disp": float(disp.abs().max()),
+            "max_abs_err": err, "staged_tiles": kernel, "tiles": tiles,
+            "staged_share": kernel / tiles,
+            # the largest box of any tile: (x1, x2) rows and voxels along x3
+            "box_rows_max": int((extent[0] * extent[1]).max()),
+            "box_width_max": int(extent[2].max())}
 
 
 def phase_kernel_parity(dev) -> dict:
     """Every kernel against its plain version on the same inputs: K1 (C=1..3)
-    and K2 (C=3) and K3 at 256^3 and on a non-cubic grid with |disp| up to
-    12 voxels; K4 on four shapes and two beta sets, its output also held
-    against ``SpectralOps.reg_apply`` after an inverse FFT."""
+    and K2 (C=3) and K3 at 256^3 and on a non-cubic grid with random |disp|
+    up to 12 voxels (K1 and K2 stage no tile there), K1 and K2 on smooth
+    displacements (most tiles stage); K4 on four shapes and two beta sets,
+    its output also held against ``SpectralOps.reg_apply`` after an inverse
+    FFT."""
+    from fmad_ab import smooth_disp
     from repro_torch.core.grid import make_grid
     from repro_torch.core.spectral import SpectralOps
     from repro_torch.kernels import ref, spectral_diag, tricubic
@@ -197,27 +255,31 @@ def phase_kernel_parity(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs = {name: 0.0 for name in KERNELS}
     cases = []
-    for shape in ((N_MAIN,) * 3, NONCUBIC):
-        for name, chans in (("tricubic_apply", (1, 2, 3)), ("tricubic_displace_many", (3,)),
-                            ("tricubic_displace", (1,))):
-            for c in chans:
-                f, d = _inputs(shape, c, gen, dev)
-                if name == "tricubic_apply":
-                    plan = ref.make_interp_plan(d)
-                    got = tricubic.tricubic_apply_cuda(f, plan)
-                    want = ref.interp_apply(f, plan)
-                elif name == "tricubic_displace_many":
-                    got = tricubic.tricubic_displace_many_cuda(f, d)
-                    want = ref.tricubic_displace_many(f, d)
-                else:
-                    got = tricubic.tricubic_displace_cuda(f[0], d)
-                    want = ref.tricubic_displace(f[0], d)
-                torch.cuda.synchronize()
-                err = _compare(got, want)
-                errs[name] = max(errs[name], err)
-                cases.append({"kernel": name, "shape": list(shape), "C": c,
-                              "max_disp": float(d.abs().max()), "max_abs_err": err})
-                del f, d, got, want
+    for shape, smooth in (((N_MAIN,) * 3, SMOOTH_DISP), (NONCUBIC, NONCUBIC_SMOOTH_DISP)):
+        for field in ("random", "smooth"):
+            for name, chans in (("tricubic_apply", (1, 2, 3)), ("tricubic_displace_many", (3,)),
+                                ("tricubic_displace", (1,))):
+                if field == "smooth" and name == "tricubic_displace":
+                    continue
+                for c in chans:
+                    f, d = _inputs(shape, c, gen, dev)
+                    if field == "smooth":
+                        d = smooth_disp(shape, smooth, gen, dev)
+                    if name == "tricubic_displace":
+                        got = tricubic.tricubic_displace_cuda(f[0], d)
+                        want = ref.tricubic_displace(f[0], d)
+                        torch.cuda.synchronize()
+                        case = {"kernel": name, "shape": list(shape), "C": c,
+                                "max_disp": float(d.abs().max()),
+                                "max_abs_err": _compare(got, want)}
+                        del got, want
+                    elif name == "tricubic_apply":
+                        case = _tile_case(name, f, d, ref.make_interp_plan(d))
+                    else:
+                        case = _tile_case(name, f, d)
+                    errs[name] = max(errs[name], case["max_abs_err"])
+                    cases.append({"field": field, **case})
+                    del f, d
     for shape in SPECTRAL_SHAPES:
         f = torch.randn(shape, generator=gen, device=dev)
         spec = torch.fft.fftn(f)
@@ -247,9 +309,41 @@ def phase_kernel_parity(dev) -> dict:
                           "max_rel_err_vs_reg_apply": rel})
             del got, want
         del f, spec, re, im, ops
-    emit("kernel_parity", atol=ATOL, rtol=RTOL, spectral_rtol=SPECTRAL_RTOL,
+    emit("kernel_parity", tricubic="bit for bit", spectral_rtol=SPECTRAL_RTOL,
          reg_apply_rtol=REG_APPLY_RTOL, cases=cases)
     return errs
+
+
+def _solve_fields(out, dev) -> dict:
+    """The 256^3 solve's own K1 and K2 inputs at its solved velocity: the
+    departure displacement of a transport step (K1's plan) with a C=2 stack
+    of deformed images, and the RK2 midpoint displacement -dt v with the
+    three velocity components (K2)."""
+    from repro_torch.core import gauss_newton as gn
+    from repro_torch.core import planner
+    from repro_torch.kernels import ref
+
+    grid, v = out["grid"], out["v"]
+    dt = 1.0 / gn.GNConfig().n_t
+    h = torch.tensor(grid.spacing, dtype=torch.float32, device=dev).reshape(3, 1, 1, 1)
+    vg = (v / h).contiguous()
+    lam = out["rho_deformed"]
+    disp = planner.departure_displacement(v, grid, dt)
+    return {"disp": disp, "plan": ref.make_interp_plan(disp),
+            "f2": torch.stack([lam, lam * lam]).contiguous(),
+            "vg": vg, "d_star": (-dt * vg).contiguous()}
+
+
+def phase_kernel_parity_solve(solve, errs) -> None:
+    """K1 and K2 on the 256^3 solve's own fields (``_solve_fields``): bit
+    for bit, the staged-tile counter equal to the model, and some tiles of
+    K1's plan staged."""
+    cases = [_tile_case("tricubic_apply", solve["f2"], solve["disp"], solve["plan"]),
+             _tile_case("tricubic_displace_many", solve["vg"], solve["d_star"])]
+    for case in cases:
+        errs[case["kernel"]] = max(errs[case["kernel"]], case["max_abs_err"])
+    emit("kernel_parity_solve", n=N_MAIN, cases=cases)
+    require(cases[0]["staged_tiles"] > 0, "no tile of the solve's K1 plan was staged")
 
 
 # --------------------------------------------------------------------------- #
@@ -354,17 +448,45 @@ def _require_launched(launches, expected, path: str) -> None:
             f"{path}: launch counts {launches} != counted from code {expected}")
 
 
-def phase_main(dev) -> tuple[dict, dict, tuple]:
+def _path_staged(counts) -> dict:
+    """``tricubic.count_staged()``'s counts as {kernel: {grid: {staged,
+    tiles, share}}}, with "all" the kernel's launches at every grid."""
+    out = {}
+    for (name, shape), c in sorted(counts.items()):
+        grids = out.setdefault(name, {})
+        grids["x".join(map(str, shape))] = dict(c)
+        total = grids.setdefault("all", {"staged": 0, "tiles": 0})
+        total["staged"] += c["staged"]
+        total["tiles"] += c["tiles"]
+    for grids in out.values():
+        for c in grids.values():
+            c["share"] = c["staged"] / c["tiles"]
+    return out
+
+
+def _require_staged(staged, path: str) -> None:
+    """K1 and K2 each staged at least MIN_PATH_STAGED_SHARE of the tiles
+    of their launches on ``path``, at every grid size."""
+    require(set(staged) == {"tricubic_apply", "tricubic_displace_many"},
+            f"{path}: staged tiles counted for {sorted(staged)}")
+    low = {f"{name} {grid}": c["share"] for name, grids in staged.items()
+           for grid, c in grids.items() if c["share"] < MIN_PATH_STAGED_SHARE}
+    require(not low, f"{path}: staged share below {MIN_PATH_STAGED_SHARE}: {low}")
+
+
+def phase_main(dev) -> tuple[dict, dict, tuple, dict]:
     from repro_torch import telemetry
+    from repro_torch.kernels import tricubic
 
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
-    with telemetry.ListSink() as sink:
+    with telemetry.ListSink() as sink, tricubic.count_staged() as counts:
         out, images = _register(N_MAIN, "auto", dev)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
     launches = _launches()
+    staged = _path_staged(counts)
     walls = [r["wall_s"] for r in sink.records if r["kind"] == "newton_iter"]
     iters = [
         {"iter": h["iter"], "J": h["J"], "gnorm": h["gnorm"], "rel_gnorm": h["rel_gnorm"],
@@ -378,10 +500,11 @@ def phase_main(dev) -> tuple[dict, dict, tuple]:
          residual_rel=out["residual_rel"],
          residual_rel_smoothed=out["residual_rel_smoothed"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches, expected_launches=expected)
+         launches=launches, expected_launches=expected, staged_tiles=staged)
     _require_launched(launches, expected, "main_path")
+    _require_staged(staged, "main_path")
     _check_solution(out)
-    return out, launches, images
+    return out, launches, images, staged
 
 
 # --------------------------------------------------------------------------- #
@@ -437,14 +560,19 @@ def phase_ml_solve_parity(dev) -> None:
 
 def phase_multilevel(dev) -> dict:
     """The example's coarse-to-fine ``register()`` at 256^3 (64^3 -> 128^3 ->
-    256^3, V-cycle at both warm levels), through the kernels."""
+    256^3, V-cycle at both warm levels), through the kernels: its V-cycle's
+    inner solves and Armijo trials included, K1 and K2 stage their tiles."""
+    from repro_torch.kernels import tricubic
+
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
-    out, mcfg, images = _register_ml(N_MAIN, "auto", dev)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    with tricubic.count_staged() as counts:
+        out, mcfg, images = _register_ml(N_MAIN, "auto", dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
     launches = _launches()
+    staged = _path_staged(counts)
     expected = _expected_ml_launches(out, mcfg)
     emit("multilevel_path", n=N_MAIN, grids=out["grids"], seconds=secs,
          solver=ML_SOLVER, precond="vcycle", max_newton_cut=False,
@@ -456,8 +584,9 @@ def phase_multilevel(dev) -> dict:
          det_min=out["det_min"], det_max=out["det_max"], residual_rel=out["residual_rel"],
          residual_rel_smoothed=out["residual_rel_smoothed"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches, expected_launches=expected)
+         launches=launches, expected_launches=expected, staged_tiles=staged)
     _require_launched(launches, expected, "multilevel_path")
+    _require_staged(staged, "multilevel_path")
     _check_solution(out)
     return {"out": out, "cfg": mcfg, "images": images}
 
@@ -628,48 +757,38 @@ def phase_ml_profile(ml, dev) -> None:
 
 
 # --------------------------------------------------------------------------- #
-def _time_ms(fn, reps: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernel_times(out, warp, spectral, dev) -> dict:
-    """Times at 256^3 on the paths' own data: the departure solve of the
-    solved velocity (K2, C=3); the planned apply of its departure plan to a
-    C=2 stack of deformed images (K1, the C of the adjoint and incremental
-    transport steps); the warp's resampling of the template (K3); the
-    scaling of the reference image's spectrum by two betas (K4).  Each row:
-    CUDA events over 50 launches (the plain version: 3), the bound from the
-    bytes and operations of these inputs, and one PyTorch call computing
-    the same function where there is one."""
-    from repro_torch.core import gauss_newton as gn
-    from repro_torch.core import planner
-    from repro_torch.kernels import ref, spectral_diag, tricubic
+def _tile_bytes_flops(name: str, c: int, npts: int) -> tuple[int, int]:
+    """Bytes and f32 operations of one K1 or K2 launch (csrc/tricubic.cu)."""
+    if name == "tricubic_apply":
+        return (2 * c + 15) * 4 * npts, 168 * c * npts
+    return (2 * c + 3) * 4 * npts, (168 * c + 66) * npts
 
-    grid = out["grid"]
-    v = out["v"]
-    dt = 1.0 / gn.GNConfig().n_t
-    h = torch.tensor(grid.spacing, dtype=torch.float32, device=dev).reshape(3, 1, 1, 1)
-    vg = (v / h).contiguous()
-    d_star = (-dt * vg).contiguous()
-    disp = planner.departure_displacement(v, grid, dt)
-    plan = ref.make_interp_plan(disp)
-    lam = out["rho_deformed"]
-    f2 = torch.stack([lam, lam * lam]).contiguous()
+
+def phase_kernel_times(solve, warp, spectral, dev) -> dict:
+    """Times at 256^3 on the paths' own data (``_solve_fields``): the
+    departure solve of the solved velocity (K2, C=3); the planned apply of
+    its departure plan to a C=2 stack of deformed images (K1, the C of the
+    adjoint and incremental transport steps); the warp's resampling of the
+    template (K3); the scaling of the reference image's spectrum by two
+    betas (K4).  Each row: CUDA events over 50 launches (the plain version:
+    3; K1-K3 by direct calls of their C entry points, K4 through its
+    wrapper), the bound from the bytes and operations of these inputs, and
+    one PyTorch call computing the same function where there is one.  Then
+    K1 (C=2) and K2 (C=3) on random fields and a smooth displacement of
+    SMOOTH_DISP x n/256 voxels at each of TIME_SIZES, 50 x 256/n launches
+    each."""
+    from fmad_ab import raw_launcher, smooth_disp, time_ms
+    from repro_torch.kernels import build, ref, spectral_diag, tricubic
+
+    lib = build.library()
+    plan, f2, vg, d_star = solve["plan"], solve["f2"], solve["vg"], solve["d_star"]
+    disp = solve["disp"]
     field, wdisp = warp["field"], warp["disp"]
     re, im, betas = spectral["re"], spectral["im"], spectral["betas"]
     nb = len(betas)
@@ -678,16 +797,16 @@ def phase_kernel_times(out, warp, spectral, dev) -> dict:
     planes = torch.stack([re, im])[None]  # (1, 2, N..)
     ksq = spectral_diag._ksq(re.shape, dev)
     sym = torch.stack([(b * ksq) * ksq for b in betas])[:, None]  # (C, 1, N..)
-    npts = grid.num_points
+    npts = vg[0].numel()
     rows = {}
     for name, kern, plain, library, c, nbytes, flops, max_disp in (
-        ("tricubic_apply", lambda: tricubic.tricubic_apply_cuda(f2, plan),
-         lambda: ref.interp_apply(f2, plan), None, 2, (2 * 2 + 15) * 4 * npts,
-         168 * 2 * npts, disp),
-        ("tricubic_displace_many", lambda: tricubic.tricubic_displace_many_cuda(vg, d_star),
-         lambda: ref.tricubic_displace_many(vg, d_star), None, 3, (2 * 3 + 3) * 4 * npts,
-         (168 * 3 + 66) * npts, d_star),
-        ("tricubic_displace", lambda: tricubic.tricubic_displace_cuda(field, wdisp),
+        ("tricubic_apply", raw_launcher(lib, "tricubic_apply", f2, plan=plan),
+         lambda: ref.interp_apply(f2, plan), None, 2, *_tile_bytes_flops("tricubic_apply", 2, npts),
+         disp),
+        ("tricubic_displace_many", raw_launcher(lib, "tricubic_displace_many", vg, d_star),
+         lambda: ref.tricubic_displace_many(vg, d_star), None, 3,
+         *_tile_bytes_flops("tricubic_displace_many", 3, npts), d_star),
+        ("tricubic_displace", raw_launcher(lib, "tricubic_displace", field[None], wdisp),
          lambda: ref.tricubic_displace(field, wdisp), None, 1, (1 + 3 + 1) * 4 * npts,
          (168 + 66) * npts, wdisp),
         ("biharmonic_scale", lambda: spectral_diag.biharmonic_scale_cuda(re, im, betas),
@@ -695,15 +814,37 @@ def phase_kernel_times(out, warp, spectral, dev) -> dict:
          lambda: torch.mul(planes, sym), nb, (2 + 2 * nb) * 4 * npts, (5 + 4 * nb) * npts,
          None),
     ):
-        ms = _time_ms(kern, reps=50)
-        plain_ms = _time_ms(plain, reps=3, warmup=1)
-        library_ms = None if library is None else _time_ms(library, reps=50)
+        ms = time_ms(kern, reps=50)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        library_ms = None if library is None else time_ms(library, reps=50)
         bound, by = _bound_ms(nbytes, flops)
         rows[name] = {"C": c, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                       "bound_by": by, "library_ms": library_ms, "bytes": nbytes,
                       "flops": flops,
                       "max_disp": None if max_disp is None else float(max_disp.abs().max())}
-    emit("kernel_times", n=N_MAIN, rows=rows,
+    rows["tricubic_apply"]["staged_share"] = tricubic.staged_tiles(plan.ib) / tricubic.n_tiles(
+        plan.ib.shape[1:])
+    rows["tricubic_displace_many"]["staged_share"] = tricubic.staged_tiles(
+        torch.floor(d_star).to(torch.int32)) / tricubic.n_tiles(d_star.shape[1:])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sizes = []
+    for n in TIME_SIZES:
+        shape = (n,) * 3
+        f3 = torch.randn((3,) + shape, generator=gen, device=dev)
+        d = smooth_disp(shape, SMOOTH_DISP * n / N_MAIN, gen, dev)
+        splan = ref.make_interp_plan(d)
+        for name, c, kern in (
+            ("tricubic_apply", 2, raw_launcher(lib, "tricubic_apply", f3[:2].contiguous(),
+                                              plan=splan)),
+            ("tricubic_displace_many", 3, raw_launcher(lib, "tricubic_displace_many", f3, d)),
+        ):
+            bound, by = _bound_ms(*_tile_bytes_flops(name, c, n ** 3))
+            sizes.append({"kernel": name, "n": n, "C": c, "max_disp": float(d.abs().max()),
+                          "ms": time_ms(kern, reps=50 * N_MAIN // n), "bound_ms": bound,
+                          "bound_by": by, "staged_share": tricubic.staged_tiles(splan.ib)
+                          / tricubic.n_tiles(shape)})
+        del f3, d, splan
+    emit("kernel_times", n=N_MAIN, rows=rows, sizes=sizes,
          library_ms_note="no single PyTorch call computes a tricubic interpolation "
                          "(grid_sample is at most trilinear in 3-D), so K1-K3 have none; "
                          "K4's is torch.mul of the stacked planes (1,2,N..) by a "
@@ -726,10 +867,13 @@ def main() -> int:
     phase_ml_profile(ml, dev)
     del ml
     torch.cuda.empty_cache()
-    out, main_launches, images = phase_main(dev)
+    out, main_launches, images, main_staged = phase_main(dev)
     warp = phase_warp(out, images, dev)
     spectral = phase_spectral(images, dev)
-    times = phase_kernel_times(out, warp, spectral, dev)
+    solve = _solve_fields(out, dev)
+    phase_kernel_parity_solve(solve, errs)
+    times = phase_kernel_times(solve, warp, spectral, dev)
+    del solve
     phase_profile(out, images, dev)
     launches = {"main_path": main_launches, "warp": warp["launches"],
                 "spectral": spectral["launches"]}
@@ -739,7 +883,9 @@ def main() -> int:
          "launches": launches[meta["path"]][name], "max_abs_err": errs[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
-         "library_ms": times[name]["library_ms"]}
+         "library_ms": times[name]["library_ms"],
+         # the share of the tiles of the main path's launches that staged
+         "staged_share": main_staged[name]["all"]["share"] if name in main_staged else None}
         for name, meta in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -33,8 +33,8 @@ LOG_NAME = "ptxas.log"
 
 _VP, _I, _FP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
 SIGNATURES = {
-    "tricubic_apply_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    "tricubic_displace_many_f32": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "tricubic_apply_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP],
+    "tricubic_displace_many_f32": [_VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP],
     "tricubic_displace_f32": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "biharmonic_scale_f32": [_VP, _VP, _VP, _VP, _FP, _I, _I, _I, _I, _VP],
 }
@@ -53,16 +53,16 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME/bin or /usr/local/cuda/bin")
 
 
-def source_hash(flags: tuple[str, ...] = NVCC_FLAGS) -> str:
+def source_hash(flags: tuple[str, ...] = NVCC_FLAGS, sources: tuple[Path, ...] = SOURCES) -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in sources:
         h.update(src.read_bytes())
     h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def build_dir(flags: tuple[str, ...] = NVCC_FLAGS) -> Path:
-    return BUILD_ROOT / source_hash(flags)
+def build_dir(flags: tuple[str, ...] = NVCC_FLAGS, sources: tuple[Path, ...] = SOURCES) -> Path:
+    return BUILD_ROOT / source_hash(flags, sources)
 
 
 def _run(cmd: list[str]) -> str:
@@ -74,7 +74,7 @@ def _run(cmd: list[str]) -> str:
     return proc.stdout + proc.stderr
 
 
-def build(flags: tuple[str, ...] = NVCC_FLAGS) -> Path:
+def build(flags: tuple[str, ...] = NVCC_FLAGS, sources: tuple[Path, ...] = SOURCES) -> Path:
     """Compile the kernels unless this source's library exists; return its path.
 
     Every source compiles to an object in its own ``nvcc`` process, all
@@ -83,17 +83,19 @@ def build(flags: tuple[str, ...] = NVCC_FLAGS) -> Path:
     beside the library as ``ptxas.log``.  Objects and library are written
     under temporary names, so a concurrent build never loads a half-written
     file.  ``flags`` other than ``NVCC_FLAGS`` build a variant for a
-    measurement (``bench_torch/fmad_ab.py``); the wrappers load the default.
+    measurement (``bench_torch/fmad_ab.py``), and other ``sources`` a
+    library to compare with (``bench_torch/tricubic_ab.py``); the wrappers
+    load the default.
     """
-    out_dir = build_dir(flags)
+    out_dir = build_dir(flags, sources)
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
-        cmds = [[nvcc, *flags, "-c", "-o", str(o), str(src)] for src, o in zip(SOURCES, objs)]
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        cmds = [[nvcc, *flags, "-c", "-o", str(o), str(src)] for src, o in zip(sources, objs)]
         with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
             logs = list(pool.map(_run, cmds))
         tmp_lib = Path(tmp) / LIB_NAME
@@ -109,10 +111,11 @@ def ptxas_log() -> str:
     return (build_dir() / LOG_NAME).read_text()
 
 
-def load(path: Path) -> ctypes.CDLL:
-    """Load a built library, with every function's ``argtypes`` set."""
+def load(path: Path, signatures: dict = SIGNATURES) -> ctypes.CDLL:
+    """Load a built library, with the ``argtypes`` of every function that
+    ``signatures`` names set."""
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

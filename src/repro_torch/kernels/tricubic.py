@@ -18,13 +18,33 @@ contiguity, allocates the output, launches on the current stream, raises
 if the launch was refused, and adds one to its entry of ``LAUNCHES``.  The
 choice between a kernel and its plain version is made by the caller from
 the tensor's device (``kernels/ops.py``); nothing here falls back.
+
+The planned apply and the batched displace work on output tiles of
+``TILE`` points and stage a tile's stencil box in shared memory when it is
+small enough; otherwise the same block gathers from global memory (the
+design note at the head of ``csrc/tricubic.cu``).  ``staged_tiles`` is the
+plain model of that rule: how many tiles a launch stages, for a given
+stencil base.  Inside a ``count_staged()`` block the two wrappers have
+the kernel count the tiles it stages, by kernel and grid shape, to hold
+against the model or to show which branch a whole solve took.
 """
 from __future__ import annotations
 
+import contextlib
+import math
+
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 from repro_torch.kernels.ref import InterpPlan
+
+# the output tile of the planned apply and the batched displace, points
+# along (x1, x2, x3), and the largest box of source voxels they stage: at
+# most BOX_WIDTH along x3 and BOX_ROWS (x1, x2) rows.  The kTile*,
+# kBoxWidth and kBoxRows of csrc/tricubic.cu.
+TILE = (4, 8, 32)
+BOX_WIDTH = 40
+BOX_ROWS = 144
 
 # launches per kernel since the last reset_launches(): a run reads these to
 # show that its path went through the kernels
@@ -34,6 +54,45 @@ LAUNCHES = {"tricubic_apply": 0, "tricubic_displace_many": 0, "tricubic_displace
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# (kernel, grid shape) -> [device staged-tile counter, tiles launched]
+# while count_staged() is open, else None
+_COUNTING: dict | None = None
+
+
+@contextlib.contextmanager
+def count_staged():
+    """Count the tiles that the planned apply and the batched displace stage.
+
+    Inside the block every launch of either wrapper adds its staged tiles
+    to a device counter of its kernel and grid shape (one atomic add per
+    staged tile), and its tiles to a host count.  Yields a dict that is filled on exit:
+    ``{(name, (N1, N2, N3)): {"staged": s, "tiles": t}}``, ``name`` a key
+    of ``LAUNCHES``.  Not reentrant.
+    """
+    global _COUNTING
+    if _COUNTING is not None:
+        raise RuntimeError("count_staged() is already open")
+    _COUNTING, counts = {}, {}
+    try:
+        yield counts
+    finally:
+        counting, _COUNTING = _COUNTING, None
+        for key, (counter, tiles) in counting.items():
+            counts[key] = {"staged": int(counter.item()), "tiles": tiles}
+
+
+def _path_counter(name: str, shape3: tuple, device):
+    """The device address of the ``count_staged()`` counter of ``name`` at
+    ``shape3`` (made at its first launch), or None outside the block."""
+    if _COUNTING is None:
+        return None
+    key = (name, shape3)
+    if key not in _COUNTING:
+        _COUNTING[key] = [torch.zeros(1, dtype=torch.int32, device=device), 0]
+    _COUNTING[key][1] += n_tiles(shape3)
+    return _COUNTING[key][0].data_ptr()
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
@@ -61,6 +120,45 @@ def _check_fields(fields: torch.Tensor) -> tuple[int, int, int, int]:
     return c, n1, n2, n3
 
 
+def n_tiles(shape3) -> int:
+    """Output tiles of one launch of the planned apply or batched displace."""
+    return math.prod(-(-n // t) for n, t in zip(shape3, TILE))
+
+
+def tile_extents(base: torch.Tensor) -> torch.Tensor:
+    """(3, T1, T2, T3) int64: the voxels each output tile's stencils span per
+    axis, for stencil bases ``base`` (3, N1, N2, N3).
+
+    A point x with base b reaches the voxels ``x + b - 1 .. x + b + 2``
+    (not wrapped), so a tile spans ``max(x + b) - min(x + b) + 4`` over its
+    points; points beyond the grid's ragged edge do not count.
+    """
+    shape3 = tuple(base.shape[1:])
+    tiles = [-(-n // t) for n, t in zip(shape3, TILE)]
+    g = base.to(torch.int64) + ref._home(shape3, base.device).reshape((3,) + shape3)
+    padded = (3,) + tuple(k * t for k, t in zip(tiles, TILE))
+    box = []
+    for fill, reduce in ((torch.iinfo(torch.int64).max, torch.amin),
+                         (torch.iinfo(torch.int64).min, torch.amax)):
+        full = torch.full(padded, fill, dtype=torch.int64, device=base.device)
+        full[:, :shape3[0], :shape3[1], :shape3[2]] = g
+        full = full.reshape(3, tiles[0], TILE[0], tiles[1], TILE[1], tiles[2], TILE[2])
+        box.append(reduce(full, dim=(2, 4, 6)))
+        del full
+    return box[1] - box[0] + 4
+
+
+def staged_tiles(base: torch.Tensor) -> int:
+    """How many output tiles the planned apply or the batched displace
+    stages in shared memory, for stencil bases ``base`` (3, N1, N2, N3):
+    ``plan.ib`` for the apply, ``floor(disp)`` for the displace.  A tile
+    stages when its stencils span at most ``BOX_WIDTH`` voxels along x3 and
+    at most ``BOX_ROWS`` (x1, x2) rows (``tile_extents``).
+    """
+    extent = tile_extents(base)
+    return int(((extent[2] <= BOX_WIDTH) & (extent[0] * extent[1] <= BOX_ROWS)).sum())
+
+
 def _raise_on(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name} launch failed: cudaGetLastError() = {code}")
@@ -75,12 +173,13 @@ def tricubic_apply_cuda(fields: torch.Tensor, plan: InterpPlan) -> torch.Tensor:
     c, n1, n2, n3 = _check_fields(fields)
     _check("plan.ib", plan.ib, torch.int32, (3, n1, n2, n3), fields.device)
     _check("plan.w", plan.w, torch.float32, (3, 4, n1, n2, n3), fields.device)
+    counter = _path_counter("tricubic_apply", (n1, n2, n3), fields.device)
     lib = build.library()
     out = torch.empty_like(fields)
     with torch.cuda.device(fields.device):
         code = lib.tricubic_apply_f32(
             fields.data_ptr(), plan.ib.data_ptr(), plan.w.data_ptr(), out.data_ptr(),
-            c, n1, n2, n3, torch.cuda.current_stream().cuda_stream,
+            c, n1, n2, n3, counter, torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(code, "tricubic_apply_f32")
     LAUNCHES["tricubic_apply"] += 1
@@ -91,11 +190,12 @@ def tricubic_displace_many_cuda(fields: torch.Tensor, disp: torch.Tensor) -> tor
     """Batched displace: ``fields`` (C, N1,N2,N3) f32 at x + ``disp`` (3, N..)."""
     c, n1, n2, n3 = _check_fields(fields)
     _check("disp", disp, torch.float32, (3, n1, n2, n3), fields.device)
+    counter = _path_counter("tricubic_displace_many", (n1, n2, n3), fields.device)
     lib = build.library()
     out = torch.empty_like(fields)
     with torch.cuda.device(fields.device):
         code = lib.tricubic_displace_many_f32(
-            fields.data_ptr(), disp.data_ptr(), out.data_ptr(), c, n1, n2, n3,
+            fields.data_ptr(), disp.data_ptr(), out.data_ptr(), c, n1, n2, n3, counter,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(code, "tricubic_displace_many_f32")

@@ -7,16 +7,24 @@ Run on a machine with a CUDA card:
 Each kernel is held against its plain PyTorch version on the card, at
 small shapes (cubic, non-cubic with N3 % 8 != 0, displacements beyond any
 halo), and the default solve and a coarse-to-fine solve are shown to
-launch the tricubic kernels.  Whether a
+launch the tricubic kernels.  On smooth displacements, whose tiles the
+planned apply and the batched displace stage in shared memory, the two
+agree with their plain versions bit for bit and stage as many tiles as the
+plain model ``tricubic.staged_tiles`` says; random displacements take the
+unstaged branch.  Whether a
 card is present is decided inside the ``cuda`` fixture, so every worker
 collects the same tests; without a card they skip.  Imports neither JAX
 nor the JAX package.
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "bench_torch"))
+from fmad_ab import smooth_disp  # noqa: E402
 from repro_torch.core import gauss_newton as gn
 from repro_torch.core.registration import RegistrationConfig, register
 from repro_torch.data import synthetic
@@ -58,6 +66,79 @@ def test_displace_kernel_matches_plain(cuda, shape, c):
     f, d = _inputs(cuda, shape, c)
     got = tricubic.tricubic_displace_many_cuda(f, d)
     torch.testing.assert_close(got, ref.tricubic_displace_many(f, d), atol=ATOL, rtol=RTOL)
+
+
+SMOOTH_SHAPES = [(64, 64, 64), (40, 48, 36), (12, 20, 9)]
+# voxels: the first stages every tile of these shapes, the last almost none
+SMOOTH_MAX_DISP = [2.0, 4.0, 16.0]
+
+
+def _smooth_inputs(cuda, shape, c, max_disp, seed=0):
+    """Random fields and a periodic low-mode displacement of at most
+    ``max_disp`` voxels."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    f = torch.randn((c,) + shape, generator=gen, device=cuda)
+    return f, smooth_disp(shape, max_disp, gen, cuda)
+
+
+@pytest.mark.parametrize("max_disp", SMOOTH_MAX_DISP)
+@pytest.mark.parametrize("shape", SMOOTH_SHAPES)
+@pytest.mark.parametrize("c", [1, 2, 3])
+def test_apply_kernel_bit_exact_on_smooth_field(cuda, shape, c, max_disp):
+    f, d = _smooth_inputs(cuda, shape, c, max_disp)
+    plan = ref.make_interp_plan(d)
+    with tricubic.count_staged() as counts:
+        got = tricubic.tricubic_apply_cuda(f, plan)
+    torch.testing.assert_close(got, ref.interp_apply(f, plan), atol=0, rtol=0)
+    assert counts[("tricubic_apply", shape)]["staged"] == tricubic.staged_tiles(plan.ib)
+
+
+@pytest.mark.parametrize("max_disp", SMOOTH_MAX_DISP)
+@pytest.mark.parametrize("shape", SMOOTH_SHAPES)
+@pytest.mark.parametrize("c", [1, 3])
+def test_displace_kernel_bit_exact_on_smooth_field(cuda, shape, c, max_disp):
+    f, d = _smooth_inputs(cuda, shape, c, max_disp)
+    with tricubic.count_staged() as counts:
+        got = tricubic.tricubic_displace_many_cuda(f, d)
+    torch.testing.assert_close(got, ref.tricubic_displace_many(f, d), atol=0, rtol=0)
+    assert (counts[("tricubic_displace_many", shape)]["staged"]
+            == tricubic.staged_tiles(torch.floor(d).to(torch.int32)))
+
+
+def test_staged_branch_taken_on_small_smooth_field(cuda):
+    """The smallest smooth field stages tiles of every shape; random
+    displacements of 9 voxels stage none: both branches run in the tests
+    above."""
+    for shape in SMOOTH_SHAPES:
+        f, d = _smooth_inputs(cuda, shape, 2, SMOOTH_MAX_DISP[0])
+        with tricubic.count_staged() as counts:
+            tricubic.tricubic_displace_many_cuda(f, d)
+        assert counts[("tricubic_displace_many", shape)]["staged"] > 0
+        f, d = _inputs(cuda, shape, 2)
+        with tricubic.count_staged() as counts:
+            tricubic.tricubic_apply_cuda(f, ref.make_interp_plan(d))
+        assert counts[("tricubic_apply", shape)]["staged"] == 0
+
+
+def test_count_staged_counts_every_launch(cuda):
+    """count_staged() adds up each launch's staged tiles by kernel and grid,
+    as many as the plain model says; outside it nothing is counted."""
+    shape = (40, 48, 36)
+    f, d = _smooth_inputs(cuda, shape, 2, SMOOTH_MAX_DISP[1])
+    plan = ref.make_interp_plan(d)
+    tricubic.tricubic_apply_cuda(f, plan)
+    with tricubic.count_staged() as counts:
+        for _ in range(2):
+            tricubic.tricubic_apply_cuda(f, plan)
+        tricubic.tricubic_displace_many_cuda(f, d)
+    tricubic.tricubic_displace_many_cuda(f, d)
+    tiles = tricubic.n_tiles(shape)
+    assert counts == {
+        ("tricubic_apply", shape): {"staged": 2 * tricubic.staged_tiles(plan.ib),
+                                    "tiles": 2 * tiles},
+        ("tricubic_displace_many", shape): {
+            "staged": tricubic.staged_tiles(torch.floor(d).to(torch.int32)), "tiles": tiles},
+    }
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -300,7 +300,8 @@ def test_port_imports_neither_jax_nor_repro():
     import re
 
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "bench_torch", "fmad_ab.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "bench_torch", n) for n in ("fmad_ab.py", "tricubic_ab.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     offenders = [p for p in files if pattern.search(open(p).read())]
@@ -314,7 +315,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
         "import importlib\n"
         f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
-        "import chip_smoke, fmad_ab\n"
+        "import chip_smoke, fmad_ab, tricubic_ab\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), ROOT, os.path.join(ROOT, "bench_torch")]))
@@ -337,6 +338,28 @@ def test_fmad_ab_flips_one_flag_and_needs_a_card():
     assert flipped == [("-fmad=false", "-fmad=true")]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, script, "--n", "8"], env=env, capture_output=True,
+                          text=True)
+    assert proc.returncode != 0 and "CUDA card" in proc.stderr
+    assert proc.stdout == ""
+
+
+def test_tricubic_ab_builds_the_first_design_beside_the_tree_and_needs_a_card():
+    """The A/B baseline is the kernels' first design (one thread per point,
+    no staged-tile counter in its entry points), and the script refuses to
+    run without a card."""
+    script = os.path.join(ROOT, "bench_torch", "tricubic_ab.py")
+    sys.path.insert(0, os.path.dirname(script))
+    try:
+        import tricubic_ab
+    finally:
+        sys.path.remove(os.path.dirname(script))
+    base = tricubic_ab.BASELINE.read_text()
+    assert "Shared-memory staging and several points per thread are later work" in base
+    assert "staged_tiles" not in base and "staged_tiles" in build.SOURCES[0].read_text()
+    for name in ("tricubic_apply_f32", "tricubic_displace_many_f32"):
+        assert len(tricubic_ab.BASELINE_SIGNATURES[name]) + 1 == len(build.SIGNATURES[name])
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, script, "--sizes", "8"], env=env, capture_output=True,
                           text=True)
     assert proc.returncode != 0 and "CUDA card" in proc.stderr
     assert proc.stdout == ""
