@@ -27,7 +27,7 @@ plain version.  Needs one CUDA card and ``nvcc``.
 
 The module also holds the measurement helpers that ``tricubic_ab.py``,
 ``chip_smoke.py`` and the port's tests share: ``time_ms``,
-``smooth_disp`` and ``raw_launcher``.
+``smooth_disp``, ``raw_launcher`` and ``plain``.
 """
 from __future__ import annotations
 
@@ -102,8 +102,9 @@ def raw_launcher(lib, name: str, f, disp=None, plan=None, counter=None, staged_a
     than the kernel.  ``name``, a key of ``tricubic.LAUNCHES``:
     "tricubic_apply" (K1, ``plan``), "tricubic_displace_many" (K2,
     ``disp``) or "tricubic_displace" (K3, ``f`` of shape (1, N..), ``disp``).
-    ``counter``: the staged-tile counter of K1 and K2; ``staged_arg=False``
-    for a library whose entry points take none (the first design).  The
+    ``counter``: the staged-tile counter; ``staged_arg=False`` for a
+    library whose entry points take none and whose K3 takes no channel
+    count either (the first design).  The
     function holds every tensor whose pointer it passes: a closure that
     kept only ``data_ptr()`` would let a tensor be freed and the kernel read
     whatever the allocator put there next."""
@@ -120,7 +121,8 @@ def raw_launcher(lib, name: str, f, disp=None, plan=None, counter=None, staged_a
         args = (f.data_ptr(), disp.data_ptr(), out.data_ptr(), c, n1, n2, n3, *extra, stream)
     else:
         fn = lib.tricubic_displace_f32
-        args = (f.data_ptr(), disp.data_ptr(), out.data_ptr(), n1, n2, n3, stream)
+        chans = (c,) if staged_arg else ()
+        args = (f.data_ptr(), disp.data_ptr(), out.data_ptr(), *chans, n1, n2, n3, *extra, stream)
     held = (f, disp, plan, out, counter)
 
     def launch():
@@ -130,6 +132,16 @@ def raw_launcher(lib, name: str, f, disp=None, plan=None, counter=None, staged_a
         return held[3]
 
     return launch
+
+
+def plain(name: str, f, disp=None, plan=None):
+    """The plain version of what ``raw_launcher(lib, name, f, disp, plan)``
+    launches, on the same inputs."""
+    if name == "tricubic_apply":
+        return ref.interp_apply(f, plan)
+    if name == "tricubic_displace_many":
+        return ref.tricubic_displace_many(f, disp)
+    return ref.tricubic_displace_vec(f, disp)
 
 
 def main() -> int:

@@ -1,4 +1,4 @@
-"""Same-call A/B of the tricubic kernels K1 and K2 against their first design.
+"""Same-call A/B of the tricubic kernels K1-K3 against their first design.
 
 ``bench_torch/tricubic_baseline.cu`` is a verbatim copy of the first
 design of ``src/repro_torch/kernels/csrc/tricubic.cu`` (one thread per
@@ -16,7 +16,11 @@ flags, and times both in one process at each of ``--sizes`` (cubic grids):
   ``--strained`` voxels: the strain of a larger deformation per time
   step, where part or most of the tiles span more than the tree stages;
 * K1 at C=2 and K2 at C=3 on a rough displacement (uniform in
-  +-``--rough`` voxels), where no tile of the tree stages its box.
+  +-``--rough`` voxels), where no tile of the tree stages its box;
+* K3 ``tricubic_displace_f32`` (one field) on the smooth field, on a
+  smooth field of ``--warp-disp`` voxels (the size of a whole
+  registration's deformation, which the template is warped through), on
+  each strained field and on the rough one.
 
 Smooth displacements are ``fmad_ab.smooth_disp`` with the amplitude given
 at 256^3 and scaled by n/256 at other sizes (the same physical field on
@@ -24,7 +28,7 @@ every grid).  Inputs are made on the card from ``--seed``.  Each kernel is
 launched by a direct call of its C entry point on a preallocated output
 (``fmad_ab.raw_launcher``), so no wrapper's host work is timed; a timing
 is CUDA events over ``reps`` launches after two warm-up launches, with
-``reps`` = 50 x 256 / n.  Rounds run the two libraries in turns, the order
+``reps`` = 50 x 256 / n.  Rounds run the libraries in turns, the order
 reversed every other round.  Each library's output is compared with the
 plain version on the same inputs, and the tree's staged-tile counter with
 the plain model ``tricubic.staged_tiles``.
@@ -53,19 +57,21 @@ from pathlib import Path
 
 import torch
 
-from fmad_ab import raw_launcher, smooth_disp, time_ms
+from fmad_ab import plain, raw_launcher, smooth_disp, time_ms
 from repro_torch.kernels import build, ref, tricubic
 
 HERE = Path(__file__).resolve().parent
 BASELINE = HERE / "tricubic_baseline.cu"
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-# the first design's entry points: no staged-tile counter
+# the first design's entry points: no staged-tile counter, and K3 takes one
+# field with no channel count
 BASELINE_SIGNATURES = {
     "tricubic_apply_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "tricubic_displace_many_f32": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "tricubic_displace_f32": [_VP, _VP, _VP, _I, _I, _I, _VP],
 }
 TREE_SIGNATURES = {name: build.SIGNATURES[name] for name in BASELINE_SIGNATURES}
-SYMBOLS = ("apply_kernel", "displace_kernel")
+SYMBOLS = ("apply_kernel", "displace_kernel", "field_warp_kernel")
 
 
 def _ptxas(log: str) -> dict:
@@ -90,26 +96,35 @@ def _ptxas(log: str) -> dict:
     return out
 
 
-def _cases(n: int, args, gen, dev) -> dict:
-    """case -> (kernel, fields, displacement, plan) at n^3."""
+def _cases(n: int, args, gen, warp_gen, dev) -> dict:
+    """case -> (kernel, fields, displacement, plan) at n^3.  The warp-sized
+    field comes from ``warp_gen``, so that ``gen`` draws the K1 and K2
+    inputs of the script before K3 had cases (a same-call comparison with
+    that script's commit times both on the same fields)."""
     f3 = torch.randn((3, n, n, n), generator=gen, device=dev)
     f2 = f3[:2].contiguous()
+    f1 = f3[:1].contiguous()
     smooth = smooth_disp((n, n, n), args.max_disp * n / 256, gen, dev)
     plan = ref.make_interp_plan(smooth)
     cases = {
         "K1_C2_smooth": ("tricubic_apply", f2, smooth, plan),
         "K1_C3_smooth": ("tricubic_apply", f3, smooth, plan),
         "K2_C3_smooth": ("tricubic_displace_many", f3, smooth, plan),
+        "K3_smooth": ("tricubic_displace", f1, smooth, None),
     }
     for amp in args.strained:
         d = smooth_disp((n, n, n), amp * n / 256, gen, dev)
         p = ref.make_interp_plan(d)
         cases[f"K1_C2_strained{amp:g}"] = ("tricubic_apply", f2, d, p)
         cases[f"K2_C3_strained{amp:g}"] = ("tricubic_displace_many", f3, d, p)
+        cases[f"K3_strained{amp:g}"] = ("tricubic_displace", f1, d, None)
     rough = (torch.rand((3, n, n, n), generator=gen, device=dev) * 2 - 1) * args.rough
     plan = ref.make_interp_plan(rough)
     cases["K1_C2_rough"] = ("tricubic_apply", f2, rough, plan)
     cases["K2_C3_rough"] = ("tricubic_displace_many", f3, rough, plan)
+    cases["K3_rough"] = ("tricubic_displace", f1, rough, None)
+    warp = smooth_disp((n, n, n), args.warp_disp * n / 256, warp_gen, dev)
+    cases["K3_warp"] = ("tricubic_displace", f1, warp, None)
     return cases
 
 
@@ -120,6 +135,7 @@ def main() -> int:
     ap.add_argument("--max-disp", type=float, default=2.0)
     ap.add_argument("--strained", type=float, nargs="*", default=[16.0, 24.0])
     ap.add_argument("--rough", type=float, default=12.0)
+    ap.add_argument("--warp-disp", type=float, default=8.0)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -143,14 +159,14 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    warp_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     times, errs, staged = {}, {}, {}
     for n in args.sizes:
         reps = max(1, 50 * 256 // n)
         launches = {}
-        for case, (name, f, disp, plan) in _cases(n, args, gen, dev).items():
+        for case, (name, f, disp, plan) in _cases(n, args, gen, warp_gen, dev).items():
             key = f"{case}@{n}"
-            want = (ref.interp_apply(f, plan) if name == "tricubic_apply"
-                    else ref.tricubic_displace_many(f, disp))
+            want = plain(name, f, disp, plan)
             counter = torch.zeros(1, dtype=torch.int32, device=dev)
             errs[key], launches[key] = {}, {}
             for variant, lib in libs.items():
@@ -164,7 +180,9 @@ def main() -> int:
                 del got
             del want
             tiles = tricubic.n_tiles(f.shape[1:])
-            staged[key] = {"tree": int(counter.item()), "model": tricubic.staged_tiles(plan.ib),
+            model = tricubic.staged_tiles(tricubic.stencil_base(name, disp, plan),
+                                          tricubic.BOX_ROWS_OF[name])
+            staged[key] = {"tree": int(counter.item()), "model": model,
                            "tiles": tiles, "share": int(counter.item()) / tiles}
         order = list(libs)
         for r in range(args.rounds):
@@ -181,7 +199,8 @@ def main() -> int:
     med = {key: {v: statistics.median(ts) for v, ts in t.items()} for key, t in times.items()}
     print(json.dumps({
         "sizes": args.sizes, "rounds": args.rounds, "max_disp_at_256": args.max_disp,
-        "strained_at_256": args.strained, "rough": args.rough, "median_ms": med,
+        "warp_disp_at_256": args.warp_disp, "strained_at_256": args.strained,
+        "rough": args.rough, "median_ms": med,
         "tree_over_baseline": {k: m["tree"] / m["baseline"] for k, m in med.items()},
         "ptxas": ptxas, "max_abs_err_vs_plain": errs, "staged_tiles": staged,
     }), flush=True)

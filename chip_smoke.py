@@ -18,16 +18,16 @@ before it and read just after:
 * ``spectral``: the fused biharmonic scaling of a 256^3 spectrum.
 
 The launches of K1 and K2 on the solve paths must equal the counts derived
-from the code.  K1 and K2 stage a tile's stencil box in shared memory where
-it is small enough: on random displacements (``kernel_parity``), on smooth
-ones and on the solve's own fields (``kernel_parity_solve``) they must
-equal their plain versions bit for bit and stage as many tiles as the
-plain model ``tricubic.staged_tiles`` says; on ``main_path`` and
-``multilevel_path`` every launch counts its staged tiles
-(``tricubic.count_staged``), and each kernel must stage at least
-``MIN_PATH_STAGED_SHARE`` of its tiles at each grid size.  Then it times the kernels
-beside their bounds (K1 and K2 also at 64^3 and 128^3) and profiles one
-more Newton iteration by kernel class.  Every phase prints one JSON
+from the code.  K1-K3 stage a tile's stencil box in shared memory where it
+is small enough: on random displacements (``kernel_parity``), on smooth
+ones, on the solve's own fields (``kernel_parity_solve``) and, K3, on the
+warp's deformation they must equal their plain versions bit for bit and
+stage as many tiles as the plain model ``tricubic.staged_tiles`` says; on
+``main_path`` and ``multilevel_path`` every launch counts its staged
+tiles (``tricubic.count_staged``), and K1 and K2 must each stage at least
+``MIN_PATH_STAGED_SHARE`` of their tiles at each grid size.  Then it times
+the kernels beside their bounds (K1 and K2 also at 64^3 and 128^3) and
+profiles one more Newton iteration by kernel class.  Every phase prints one JSON
 line; any failed phase ends the run with a nonzero exit code.  The last
 line is ``{"ok": true, "device": {...}}``.
 
@@ -77,7 +77,11 @@ SPECTRAL_BETAS = ((1.0,), (1e-2, 1.0))
 SPECTRAL_RTOL = 2e-5  # kernel against plain version (tests/test_kernels.py)
 REG_APPLY_RTOL = 1e-3  # ifftn of the output against reg_apply, of max|reg_apply|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, an FMA counted as 2
+# the same units without FMA: the kernels build with -fmad=false (rule 1 of
+# the rounding contract in csrc/tricubic.cu), so each multiply and each add
+# is an instruction of its own
+F32_UNFUSED_OPS_PER_S = F32_FLOPS_PER_S / 2
 # each kernel: its source, the TPU kernel it replaces, its __global__ symbol
 # and the phase whose run gives its launches in the kernels line
 KERNELS = {
@@ -209,25 +213,27 @@ def _compare(got, want) -> float:
 
 
 def _tile_case(name, f, disp, plan=None) -> dict:
-    """One K1 (``plan``, made from ``disp``) or K2 (``disp``) launch with the
-    staged-tile counter, against its plain version on the same inputs: bit
-    for bit, and as many staged tiles as the plain model counts."""
-    from repro_torch.kernels import ref, tricubic
+    """One K1 (``plan``, made from ``disp``), K2 (``disp``) or K3 (``f`` of
+    one field, ``disp``) launch with the staged-tile counter, against its
+    plain version on the same inputs: bit for bit, and as many staged tiles
+    as the plain model counts."""
+    from fmad_ab import plain
+    from repro_torch.kernels import tricubic
 
     with tricubic.count_staged() as counts:
         if name == "tricubic_apply":
             got = tricubic.tricubic_apply_cuda(f, plan)
-            base = plan.ib
-        else:
+        elif name == "tricubic_displace_many":
             got = tricubic.tricubic_displace_many_cuda(f, disp)
-            base = torch.floor(disp).to(torch.int32)
-    want = (ref.interp_apply(f, plan) if name == "tricubic_apply"
-            else ref.tricubic_displace_many(f, disp))
+        else:
+            got = tricubic.tricubic_displace_cuda(f, disp)
+    want = plain(name, f, disp, plan)
     torch.cuda.synchronize()
     err = _compare(got, want)
     del got, want
     kernel = counts[(name, tuple(f.shape[1:]))]["staged"]
-    model = tricubic.staged_tiles(base)
+    base = tricubic.stencil_base(name, disp, plan)
+    model = tricubic.staged_tiles(base, tricubic.BOX_ROWS_OF[name])
     tiles = tricubic.n_tiles(f.shape[1:])
     require(kernel == model, f"{name} staged {kernel} tiles, the model {model}")
     extent = tricubic.tile_extents(base)
@@ -243,14 +249,15 @@ def _tile_case(name, f, disp, plan=None) -> dict:
 def phase_kernel_parity(dev) -> dict:
     """Every kernel against its plain version on the same inputs: K1 (C=1..3)
     and K2 (C=3) and K3 at 256^3 and on a non-cubic grid with random |disp|
-    up to 12 voxels (K1 and K2 stage no tile there), K1 and K2 on smooth
-    displacements (most tiles stage); K4 on four shapes and two beta sets,
+    up to 12 voxels (no tile stages there) and on smooth displacements
+    (most tiles stage), each with its staged tiles against the model; K4
+    on four shapes and two beta sets,
     its output also held against ``SpectralOps.reg_apply`` after an inverse
     FFT."""
     from fmad_ab import smooth_disp
     from repro_torch.core.grid import make_grid
     from repro_torch.core.spectral import SpectralOps
-    from repro_torch.kernels import ref, spectral_diag, tricubic
+    from repro_torch.kernels import ref, spectral_diag
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs = {name: 0.0 for name in KERNELS}
@@ -259,21 +266,11 @@ def phase_kernel_parity(dev) -> dict:
         for field in ("random", "smooth"):
             for name, chans in (("tricubic_apply", (1, 2, 3)), ("tricubic_displace_many", (3,)),
                                 ("tricubic_displace", (1,))):
-                if field == "smooth" and name == "tricubic_displace":
-                    continue
                 for c in chans:
                     f, d = _inputs(shape, c, gen, dev)
                     if field == "smooth":
                         d = smooth_disp(shape, smooth, gen, dev)
-                    if name == "tricubic_displace":
-                        got = tricubic.tricubic_displace_cuda(f[0], d)
-                        want = ref.tricubic_displace(f[0], d)
-                        torch.cuda.synchronize()
-                        case = {"kernel": name, "shape": list(shape), "C": c,
-                                "max_disp": float(d.abs().max()),
-                                "max_abs_err": _compare(got, want)}
-                        del got, want
-                    elif name == "tricubic_apply":
+                    if name == "tricubic_apply":
                         case = _tile_case(name, f, d, ref.make_interp_plan(d))
                     else:
                         case = _tile_case(name, f, d)
@@ -593,28 +590,42 @@ def phase_multilevel(dev) -> dict:
 
 def phase_warp(out, images, dev) -> dict:
     """Resample the raw template through the returned deformation: a 3-D
-    field through ``Interp()``, so the single-field displace kernel (K3)."""
-    from repro_torch.kernels import ops, ref
+    field through ``Interp()``, so the single-field displace kernel (K3),
+    bit for bit with its plain version and with as many staged tiles as
+    the model counts (also reported under K1/K2's box, for information)."""
+    from repro_torch.kernels import ops, ref, tricubic
 
     grid = out["grid"]
     h = torch.tensor(grid.spacing, dtype=torch.float32, device=dev).reshape(3, 1, 1, 1)
     disp = (out["displacement"] / h).contiguous()
     rho_T = images[1].contiguous()
     _reset_launches()
-    warped = ops.make_interp()(rho_T, disp)
-    torch.cuda.synchronize()
+    with tricubic.count_staged() as counts:
+        warped = ops.make_interp()(rho_T, disp)
+        torch.cuda.synchronize()
     launches = _launches()
+    staged = _path_staged(counts)
     want = ref.tricubic_displace(rho_T, disp)
     err = _compare(warped, want)
+    base = tricubic.warp_base(disp)
+    extent = tricubic.tile_extents(base)
+    kernel = staged["tricubic_displace"]["all"]
+    model = tricubic.staged_tiles(base, tricubic.WARP_BOX_ROWS)
     expected = {"tricubic_apply": 0, "tricubic_displace_many": 0, "tricubic_displace": 1,
                 "biharmonic_scale": 0}
     emit("warp", n=N_MAIN, max_disp=float(disp.abs().max()), launches=launches,
-         max_abs_err_vs_plain=err,
+         max_abs_err_vs_plain=err, staged_tiles=staged, staged_model=model,
+         box_rows=tricubic.WARP_BOX_ROWS,
+         staged_share_at_k1_k2_box=tricubic.staged_tiles(base, tricubic.BOX_ROWS)
+         / kernel["tiles"],
+         box_rows_max=int((extent[0] * extent[1]).max()), box_width_max=int(extent[2].max()),
          max_abs_warp_minus_rho_deformed=float((warped - out["rho_deformed"]).abs().max()),
          note="rho_deformed transports the presmoothed template; the warp resamples the raw "
               "one, so their difference is for information only")
     _require_launched(launches, expected, "warp")
-    return {"field": rho_T, "disp": disp, "launches": launches}
+    require(kernel["staged"] == model, f"warp: K3 staged {kernel['staged']} tiles, the model "
+                                       f"{model}")
+    return {"field": rho_T, "disp": disp, "launches": launches, "staged": staged}
 
 
 def phase_spectral(images, dev) -> dict:
@@ -757,17 +768,32 @@ def phase_ml_profile(ml, dev) -> None:
 
 
 # --------------------------------------------------------------------------- #
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound_ms(nbytes: float, flops: float, ops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _bounds(nbytes: float, flops: float) -> dict:
+    """The bound at the card's published f32 rate, and under the rounding
+    contract (no FMA: F32_UNFUSED_OPS_PER_S)."""
+    bound, by = _bound_ms(nbytes, flops)
+    unfused, unfused_by = _bound_ms(nbytes, flops, F32_UNFUSED_OPS_PER_S)
+    return {"bound_ms": bound, "bound_by": by, "bound_unfused_ms": unfused,
+            "bound_unfused_by": unfused_by}
+
+
 def _tile_bytes_flops(name: str, c: int, npts: int) -> tuple[int, int]:
-    """Bytes and f32 operations of one K1 or K2 launch (csrc/tricubic.cu)."""
+    """Bytes and f32 operations of one K1, K2 or K3 launch (csrc/tricubic.cu).
+    Per point and channel, contract_run() does 147 operations: 16 rows of 4
+    products and 3 sums, 4 plane sums of 7, and the last sum of 7.  K1 reads
+    its weights; K2 forms them per axis with floor, a subtraction and
+    lagrange()'s 3 sums and 12 products (its two negations are sign
+    modifiers of products), 17 in all; K3 adds the sum q = x + disp first."""
     if name == "tricubic_apply":
-        return (2 * c + 15) * 4 * npts, 168 * c * npts
-    return (2 * c + 3) * 4 * npts, (168 * c + 66) * npts
+        return (2 * c + 15) * 4 * npts, 147 * c * npts
+    per_axis = 17 if name == "tricubic_displace_many" else 18
+    return (2 * c + 3) * 4 * npts, (147 * c + 3 * per_axis) * npts
 
 
 def phase_kernel_times(solve, warp, spectral, dev) -> dict:
@@ -778,8 +804,9 @@ def phase_kernel_times(solve, warp, spectral, dev) -> dict:
     template (K3); the scaling of the reference image's spectrum by two
     betas (K4).  Each row: CUDA events over 50 launches (the plain version:
     3; K1-K3 by direct calls of their C entry points, K4 through its
-    wrapper), the bound from the bytes and operations of these inputs, and
-    one PyTorch call computing the same function where there is one.  Then
+    wrapper), the bound from the bytes and operations of these inputs (at
+    the published f32 rate and without FMA), K1-K3's staged share, and one
+    PyTorch call computing the same function where there is one.  Then
     K1 (C=2) and K2 (C=3) on random fields and a smooth displacement of
     SMOOTH_DISP x n/256 voxels at each of TIME_SIZES, 50 x 256/n launches
     each."""
@@ -807,8 +834,8 @@ def phase_kernel_times(solve, warp, spectral, dev) -> dict:
          lambda: ref.tricubic_displace_many(vg, d_star), None, 3,
          *_tile_bytes_flops("tricubic_displace_many", 3, npts), d_star),
         ("tricubic_displace", raw_launcher(lib, "tricubic_displace", field[None], wdisp),
-         lambda: ref.tricubic_displace(field, wdisp), None, 1, (1 + 3 + 1) * 4 * npts,
-         (168 + 66) * npts, wdisp),
+         lambda: ref.tricubic_displace(field, wdisp), None, 1,
+         *_tile_bytes_flops("tricubic_displace", 1, npts), wdisp),
         ("biharmonic_scale", lambda: spectral_diag.biharmonic_scale_cuda(re, im, betas),
          lambda: spectral_diag.biharmonic_scale_ref(re, im, betas),
          lambda: torch.mul(planes, sym), nb, (2 + 2 * nb) * 4 * npts, (5 + 4 * nb) * npts,
@@ -817,15 +844,15 @@ def phase_kernel_times(solve, warp, spectral, dev) -> dict:
         ms = time_ms(kern, reps=50)
         plain_ms = time_ms(plain, reps=3, warmup=1)
         library_ms = None if library is None else time_ms(library, reps=50)
-        bound, by = _bound_ms(nbytes, flops)
-        rows[name] = {"C": c, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": by, "library_ms": library_ms, "bytes": nbytes,
-                      "flops": flops,
+        rows[name] = {"C": c, "ms": ms, "plain_ms": plain_ms, **_bounds(nbytes, flops),
+                      "library_ms": library_ms, "bytes": nbytes, "flops": flops,
                       "max_disp": None if max_disp is None else float(max_disp.abs().max())}
-    rows["tricubic_apply"]["staged_share"] = tricubic.staged_tiles(plan.ib) / tricubic.n_tiles(
-        plan.ib.shape[1:])
-    rows["tricubic_displace_many"]["staged_share"] = tricubic.staged_tiles(
-        torch.floor(d_star).to(torch.int32)) / tricubic.n_tiles(d_star.shape[1:])
+    for name, disp_, plan_ in (("tricubic_apply", None, plan),
+                               ("tricubic_displace_many", d_star, None),
+                               ("tricubic_displace", wdisp, None)):
+        base = tricubic.stencil_base(name, disp_, plan_)
+        rows[name]["staged_share"] = (tricubic.staged_tiles(base, tricubic.BOX_ROWS_OF[name])
+                                      / tricubic.n_tiles(base.shape[1:]))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     sizes = []
     for n in TIME_SIZES:
@@ -838,10 +865,10 @@ def phase_kernel_times(solve, warp, spectral, dev) -> dict:
                                               plan=splan)),
             ("tricubic_displace_many", 3, raw_launcher(lib, "tricubic_displace_many", f3, d)),
         ):
-            bound, by = _bound_ms(*_tile_bytes_flops(name, c, n ** 3))
             sizes.append({"kernel": name, "n": n, "C": c, "max_disp": float(d.abs().max()),
-                          "ms": time_ms(kern, reps=50 * N_MAIN // n), "bound_ms": bound,
-                          "bound_by": by, "staged_share": tricubic.staged_tiles(splan.ib)
+                          "ms": time_ms(kern, reps=50 * N_MAIN // n),
+                          **_bounds(*_tile_bytes_flops(name, c, n ** 3)),
+                          "staged_share": tricubic.staged_tiles(splan.ib)
                           / tricubic.n_tiles(shape)})
         del f3, d, splan
     emit("kernel_times", n=N_MAIN, rows=rows, sizes=sizes,
@@ -877,15 +904,18 @@ def main() -> int:
     phase_profile(out, images, dev)
     launches = {"main_path": main_launches, "warp": warp["launches"],
                 "spectral": spectral["launches"]}
+    # the share of the tiles of each kernel's launches on its path that staged
+    path_staged = {"main_path": main_staged, "warp": warp["staged"], "spectral": {}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],
          "replaces": meta["replaces"], "path": meta["path"], "parity": "ok",
          "launches": launches[meta["path"]][name], "max_abs_err": errs[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
+         "bound_unfused_ms": times[name]["bound_unfused_ms"],
          "library_ms": times[name]["library_ms"],
-         # the share of the tiles of the main path's launches that staged
-         "staged_share": main_staged[name]["all"]["share"] if name in main_staged else None}
+         "staged_share": (path_staged[meta["path"]][name]["all"]["share"]
+                          if name in path_staged[meta["path"]] else None)}
         for name, meta in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

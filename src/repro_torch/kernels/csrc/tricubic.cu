@@ -27,61 +27,84 @@
 // tile-divisible shapes; at 256^3 a transport step moves ~10 voxels, so that
 // contract does not hold here, and the card has a hardware gather instead.
 //
-// Bound on an H100 (3.35 TB/s, 67 TFLOP/s f32): both kernels are bound by
-// bytes.  The planned apply reads C fields, 3 int32 bases and 12 f32 weights
-// per point and writes C outputs: (2C + 15) * 4 bytes per point against
-// 168 C flops.  The displace reads C fields and 3 displacements and writes C
-// outputs: (2C + 3) * 4 bytes per point against ~168 C + 60 flops.  The
-// single-field displace is the latter at C = 1: 20 bytes against ~234 flops.
+// Bound on an H100 (3.35 TB/s, 67 TFLOP/s f32 counting an FMA as two): all
+// three are bound by bytes.  The planned apply reads C fields, 3 int32
+// bases and 12 f32 weights per point and writes C outputs: (2C + 15) * 4
+// bytes per point against 147 C operations (contract_run: 16 rows of 4
+// products and 3 sums, then 4 x 7, then 7).  The displace reads C fields
+// and 3 displacements and writes C outputs: (2C + 3) * 4 bytes per point
+// against 147 C + 51 operations (per axis floor, subtract, and lagrange's
+// 3 sums and 12 products).  The single-field displace forms q = x + disp
+// first: 20 bytes against 201 operations at C = 1.  Built without FMA (the
+// rounding contract), the card does 33.5e12 of these operations a second,
+// and the batched and the single-field displace are bound by operations
+// instead.  A staged launch also makes 64 four-byte shared-memory loads per
+// point and channel, at 128 bytes per clock per SM.
 //
-// Design of the planned apply and the batched displace (apply_kernel,
-// displace_kernel; one template, tile_interp).  A block of 256 threads owns
+// Design (apply_kernel, displace_kernel, field_warp_kernel; one template,
+// tile_interp, with three point policies).  A block of 256 threads owns
 // an output tile of 4 x 8 x 32 points (x1 x2 x3): lane = x3, warp = x2, and
 // each thread computes the tile's 4 points along x1.  The grid is the list
 // of tiles, so no index is split by a division per point; offsets within a
 // channel are 32-bit (the wrappers refuse grids of 2^31 points), only the
-// channel and plane bases are 64-bit.  The block reads its points' stencil
-// bases (ib, or floor(disp)) and takes the box of source voxels their
-// stencils reach, [min(x + ib) - 1, max(x + ib) + 2] per axis.
+// channel and plane bases are 64-bit.  The block forms each point's stencil
+// origin g (the first of the 4 source voxels per axis, not wrapped) and
+// takes the box of source voxels its stencils reach, [min g, max g + 3] per
+// axis.  The policy says how g and the weights come about:
+//   planned (K1)      g = x + ib - 1, the 12 weights read from the plan;
+//   displace (K2)     g = x + floor(disp) - 1, weights lagrange(disp - floor);
+//   warp (K3)         q = (float)x + disp first, g = floor(q) - 1 (absolute:
+//                     not x + floor(disp) - 1, which differs where x + disp
+//                     rounds up to an integer in f32), weights lagrange(q -
+//                     floor(q)).
 //   * Staged branch, when the box spans at most kBoxWidth voxels along x3
-//     and kBoxRows (x1, x2) rows: the block copies each channel's box from
-//     global memory into shared memory with cp.async, wrapping every
-//     coordinate periodically, into one of two buffers, so that channel
-//     c + 1 arrives while channel c is contracted.  The 64 stencil reads
-//     per point are then shared-memory loads at a per-point base plus
-//     immediate offsets; neighbouring lanes read neighbouring words.
+//     and the kernel's box rows (x1, x2): the block copies each channel's
+//     box from global memory into shared memory with cp.async, wrapping
+//     every coordinate periodically.  The 64 stencil reads per point are
+//     then shared-memory loads at a per-point base plus immediate offsets;
+//     neighbouring lanes read neighbouring words.
 //   * Otherwise (a rough displacement), the same block gathers from global
-//     memory through the read-only cache: one periodic wrap per axis of
-//     x + ib - 1, the other three stencil indices by increment and
-//     compare-subtract.
+//     memory through the read-only cache: one periodic wrap per axis of g,
+//     the other three stencil indices by increment and compare-subtract.
 // Both branches contract with contract_run(): running sums with three
 // partial sums live instead of 16, each output point seeing the same
 // operations in the same order (the rounding contract below), and the loop
 // over the last stencil axis kept rolled, so that the compiler hoists at
 // most 16 loads per point (unrolled, it hoisted all 64 and spilled at every
-// register cap tried, even at 255).  The staged branch keeps each point's
-// box offset and 12 weights in registers across the channel loop; the
-// displace re-reads its displacement for the weights instead of keeping it
-// across the block's reduction.  __launch_bounds__(256, 3) caps the
-// kernels at 80 registers with no spill, so 3 blocks (24 warps, 141 KB of
-// shared memory) share an SM.  The budget, 2 buffers of kBoxRows x
-// kBoxWidth floats (46 KB), holds the box of every tile of the 256^3
-// solve's departure fields (at most 108 rows and 36 voxels; PERF.md).
+// register cap tried, even at 255).
+//   K1 and K2 run C = 2 or 3 channels: two buffers of kBoxRows x kBoxWidth
+// floats (46 KB), so that channel c + 1 arrives while channel c is
+// contracted, and each point's box offset and 12 weights stay in registers
+// across the channel loop (K2 re-reads its displacement for the weights
+// instead of keeping it across the block's reduction).  The box holds
+// every tile of the 256^3 solve's departure fields (at most 108 rows and
+// 36 voxels; PERF.md).  __launch_bounds__(256, 3) caps them at 80
+// registers with no spill, so 3 blocks (24 warps, 141 KB of shared memory)
+// share an SM.
+//   K3 resamples one image (C = 1; more channels run one after another),
+// so a second buffer would have nothing to overlap with: it has one buffer
+// of kWarpBoxRows rows, twice K1/K2's, since a warp through a whole
+// deformation strains its tiles more than one time step does.  Its weights
+// are formed as K2's are (the displacement read again after the reduction,
+// kept in registers while channel 0's box is in flight), and the overlap
+// of one block's copy with another's contraction comes from co-resident
+// blocks: 3 per SM at 80 registers with no spill.  Box height and blocks
+// per SM were chosen by a same-call A/B (bench_torch/tricubic_ab.py, with
+// these two constants edited): 144 rows tie on smooth fields and stage
+// fewer strained tiles; 4 blocks per SM (64 registers) spill (PERF.md).
 // The tile gives 256 blocks at 64^3, so the ladder's coarsest level still
 // fills the 132 SMs.  The shared memory is reserved whichever branch a
-// block takes, which leaves the unstaged branch's gathers less L1 than the
-// first design had.  kernels/tricubic.py states the tile and box rule in
-// Python (staged_tiles), and each entry point takes an optional counter of
-// the tiles that took the staged branch.
-// The single-field displace (field_warp_kernel) keeps the first design: one
-// thread per output point, 64-bit offsets, the stencil sums of contract().
+// block takes, which leaves the unstaged branch's gathers less L1.
+// kernels/tricubic.py states the tile and box rule in Python
+// (staged_tiles; warp_base for K3's g), and each entry point takes an
+// optional counter of the tiles that took the staged branch.
 //
 // Rounding contract.  Kernel and plain version (kernels/ref.py) do the same
 // IEEE f32 operations in the same order, so they agree bit for bit:
 //   1. no product is fused into an add: build.py compiles with -fmad=false;
 //   2. every 4-term stencil sum is ((p0 + p1) + p2) + p3, over axis 1, then
-//      2, then 3: contract_run() and contract() here, ref._dot4 and
-//      ref._gather_contract there;
+//      2, then 3: contract_run() here, ref._dot4 and ref._gather_contract
+//      there;
 //   3. the Lagrange weights are the expressions of lagrange() here and of
 //      ref.lagrange_weights there, term for term, with /6 as a product with
 //      the f32 reciprocal kSixth;
@@ -102,10 +125,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // field_warp_kernel: threads per block
-
-// The output tile of apply_kernel and displace_kernel, and the largest box
-// they stage.  kernels/tricubic.py (TILE, BOX_WIDTH, BOX_ROWS) mirrors these.
+// The output tile of the three kernels, and the largest box apply_kernel
+// and displace_kernel stage.  kernels/tricubic.py (TILE, BOX_WIDTH,
+// BOX_ROWS, WARP_BOX_ROWS) mirrors these and field_warp_kernel's box rows.
 constexpr int kTile1 = 4;       // points along x1, all of one thread
 constexpr int kTile2 = 8;       // points along x2, one warp each
 constexpr int kTile3 = 32;      // points along x3, one lane each
@@ -113,6 +135,8 @@ constexpr int kBoxWidth = 40;   // voxels along x3 a staged box may span
 constexpr int kBoxRows = 144;   // (x1, x2) rows a staged box may hold
 constexpr int kMinBlocks = 3;   // blocks per SM asked of the register allocator
 constexpr int kTileThreads = kTile2 * kTile3;
+constexpr int kWarpBoxRows = 288;  // field_warp_kernel's box rows, one buffer
+constexpr int kWarpMinBlocks = 3;  // and its blocks per SM
 
 __device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
 
@@ -126,39 +150,9 @@ __device__ __forceinline__ void lagrange(float t, float w[4]) {
   w[3] = (t + 1.0f) * t * (t - 1.0f) * kSixth;
 }
 
-// Contract the 4x4x4 stencil of one channel: rows r1[a] + r2[b] + r3[d].
-// Each sum is ((p0 + p1) + p2) + p3, the order of ref._dot4.
-__device__ __forceinline__ float contract(const float* __restrict__ f,
-                                          const int64_t r1[4], const int64_t r2[4],
-                                          const int64_t r3[4], const float w1[4],
-                                          const float w2[4], const float w3[4]) {
-  float s2[4][4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-#pragma unroll
-    for (int d = 0; d < 4; ++d) {
-      float s = __ldg(f + r1[0] + r2[b] + r3[d]) * w1[0];
-#pragma unroll
-      for (int a = 1; a < 4; ++a) s += __ldg(f + r1[a] + r2[b] + r3[d]) * w1[a];
-      s2[b][d] = s;
-    }
-  }
-  float s3[4];
-#pragma unroll
-  for (int d = 0; d < 4; ++d) {
-    float s = s2[0][d] * w2[0];
-#pragma unroll
-    for (int b = 1; b < 4; ++b) s += s2[b][d] * w2[b];
-    s3[d] = s;
-  }
-  float out = s3[0] * w3[0];
-#pragma unroll
-  for (int d = 1; d < 4; ++d) out += s3[d] * w3[d];
-  return out;
-}
-
-// The same contraction as contract(), written as running sums: at(a, b, d)
-// is the value at stencil offset (a - 1, b - 1, d - 1).  plane() folds the
+// The contraction of the 4x4x4 stencil of one channel, as running sums:
+// at(a, b, d) is the value at stencil offset (a - 1, b - 1, d - 1), each
+// sum ((p0 + p1) + p2) + p3 in the order of ref._dot4.  plane() folds the
 // axis-1 sums s_b of one d into acc_d = ((s_0 w2[0] + s_1 w2[1]) + ...), and
 // contract_run() folds acc_d into out = ((acc_0 w3[0] + acc_1 w3[1]) + ...),
 // so three sums are live.  The loop over d stays rolled (see the design
@@ -186,19 +180,6 @@ __device__ __forceinline__ float contract_run(At at, const float* w1, const floa
     out = out + plane(at, d, w1, w2) * w;
   }
   return out;
-}
-
-// Stencil row offsets of the point (x1, x2, x3) with base offsets (i1, i2, i3).
-__device__ __forceinline__ void rows(int x1, int x2, int x3, int i1, int i2, int i3,
-                                     int n1, int n2, int n3, int64_t r1[4],
-                                     int64_t r2[4], int64_t r3[4]) {
-  const int64_t s1 = (int64_t)n2 * n3;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    r1[a] = (int64_t)wrap(x1 + i1 + a - 1, n1) * s1;
-    r2[a] = (int64_t)wrap(x2 + i2 + a - 1, n2) * n3;
-    r3[a] = (int64_t)wrap(x3 + i3 + a - 1, n3);
-  }
 }
 
 // Offsets of the stencil indices g, g+1, g+2, g+3 along an axis of length n
@@ -240,36 +221,43 @@ __device__ __forceinline__ void stage_box(float* dst, const float* __restrict__ 
   cp_async_commit();
 }
 
-// The 12 weights of the point at flat index q, axis-major (w1[0..3],
-// w2[0..3], w3[0..3]): read from the plan, or built from the displacement.
-template <bool kPlanned>
+// How a kernel forms its points' stencil origins and weights (design note).
+enum class Policy { kPlanned, kDisplace, kWarp };
+
+// The 12 weights of the point x at flat index q, axis-major (w1[0..3],
+// w2[0..3], w3[0..3]): read from the plan (K1), or built from the
+// displacement d, as lagrange(d - floor(d)) (K2) or from the query point
+// x + d, as lagrange(q - floor(q)) (K3).
+template <Policy P>
 __device__ __forceinline__ void point_weights(const float* __restrict__ w,
                                               const float* __restrict__ disp, int npts, int q,
-                                              float wt[12]) {
-  if constexpr (kPlanned) {
+                                              const int x[3], float wt[12]) {
+  if constexpr (P == Policy::kPlanned) {
     // w is (3, 4, N): plane (axis, k) starts at (4 * axis + k) * N
 #pragma unroll
     for (int k = 0; k < 12; ++k) wt[k] = __ldg(w + (size_t)k * npts + q);
   } else {
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
-      const float d = __ldg(disp + (size_t)ax * npts + q);
+      float d = __ldg(disp + (size_t)ax * npts + q);
+      if constexpr (P == Policy::kWarp) d = (float)x[ax] + d;
       lagrange(d - floorf(d), &wt[4 * ax]);
     }
   }
 }
 
-// One output tile of the planned apply (kPlanned: ib and w from the plan)
-// or of the batched displace (disp; ib = floor(disp), weights by lagrange()).
-template <bool kPlanned>
+// One output tile of C channels under policy P, staging boxes of at most
+// kRows (x1, x2) rows in kBuffers buffers.
+template <Policy P, int kBuffers, int kRows>
 __device__ __forceinline__ void tile_interp(const float* __restrict__ fields,
                                             const int32_t* __restrict__ ib,
                                             const float* __restrict__ w,
                                             const float* __restrict__ disp,
                                             float* __restrict__ out, int channels, int n1,
                                             int n2, int n3, int* __restrict__ staged_tiles) {
-  __shared__ float box[2][kBoxRows * kBoxWidth];
-  __shared__ int row_off[kBoxRows];
+  static_assert(kBuffers == 1 || kBuffers == 2, "one or two box buffers");
+  __shared__ float box[kBuffers][kRows * kBoxWidth];
+  __shared__ int row_off[kRows];
   __shared__ int col_off[kBoxWidth];
   __shared__ int red[6][kTile2];
 
@@ -284,7 +272,8 @@ __device__ __forceinline__ void tile_interp(const float* __restrict__ fields,
   // flat index of the thread's first point; point p is p * n23 further on
   const int q0 = in_row ? (x1_0 * n2 + x2) * n3 + x3 : 0;
 
-  // 1. each point's stencil origin g = x + ib - 1 (not wrapped), and the box
+  // 1. each point's stencil origin g (not wrapped), and the box; K2 and K3
+  // read their displacement again for the weights instead of keeping it
   int g[kTile1][3];
   int lo[3] = {INT_MAX, INT_MAX, INT_MAX}, hi[3] = {INT_MIN, INT_MIN, INT_MIN};
 #pragma unroll
@@ -294,10 +283,15 @@ __device__ __forceinline__ void tile_interp(const float* __restrict__ fields,
     const int x[3] = {x1_0 + p, x2, x3};
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
-      // the displacement is read again for the weights, not kept
-      const int base = kPlanned ? __ldg(ib + (size_t)ax * npts + q)
-                                : (int)floorf(__ldg(disp + (size_t)ax * npts + q));
-      g[p][ax] = x[ax] + base - 1;
+      if constexpr (P == Policy::kWarp) {
+        // the query point first, as ref.tricubic_displace forms it
+        g[p][ax] = (int)floorf((float)x[ax] + __ldg(disp + (size_t)ax * npts + q)) - 1;
+      } else {
+        const int base = P == Policy::kPlanned
+                             ? __ldg(ib + (size_t)ax * npts + q)
+                             : (int)floorf(__ldg(disp + (size_t)ax * npts + q));
+        g[p][ax] = x[ax] + base - 1;
+      }
       lo[ax] = min(lo[ax], g[p][ax]);
       hi[ax] = max(hi[ax], g[p][ax]);
     }
@@ -325,17 +319,22 @@ __device__ __forceinline__ void tile_interp(const float* __restrict__ fields,
   const unsigned s1 = (unsigned)hi[0] - (unsigned)lo[0];
   const unsigned s2 = (unsigned)hi[1] - (unsigned)lo[1];
   const unsigned s3 = (unsigned)hi[2] - (unsigned)lo[2];
-  const bool staged = s3 <= (unsigned)(kBoxWidth - 4) && s1 < (unsigned)kBoxRows &&
-                      s2 < (unsigned)kBoxRows && (s1 + 4) * (s2 + 4) <= (unsigned)kBoxRows;
+  const bool staged = s3 <= (unsigned)(kBoxWidth - 4) && s1 < (unsigned)kRows &&
+                      s2 < (unsigned)kRows && (s1 + 4) * (s2 + 4) <= (unsigned)kRows;
 
   if (staged) {
     // 2. staged: the wrapped source offsets of the box's rows and columns,
     // then channel 0's box in flight while the weights are read
     if (staged_tiles != nullptr && tid == 0) atomicAdd(staged_tiles, 1);
     const int e2 = (int)s2 + 4, e3 = (int)s3 + 4, rows = ((int)s1 + 4) * e2;
-    if (tid < rows) {
-      const int j1 = tid / e2;
-      row_off[tid] = wrap(lo[0] + j1, n1) * n23 + wrap(lo[1] + tid - j1 * e2, n2) * n3;
+    // one pass for K1/K2's 144 rows, two for K3's 288
+#pragma unroll
+    for (int r0 = 0; r0 < kRows; r0 += kTileThreads) {
+      const int r = r0 + tid;
+      if (r < rows) {
+        const int j1 = r / e2;
+        row_off[r] = wrap(lo[0] + j1, n1) * n23 + wrap(lo[1] + r - j1 * e2, n2) * n3;
+      }
     }
     if (tid < e3) col_off[tid] = wrap(lo[2] + tid, n3);
     __syncthreads();
@@ -347,19 +346,25 @@ __device__ __forceinline__ void tile_interp(const float* __restrict__ fields,
     for (int p = 0; p < kTile1; ++p) {
       if (!in_row || x1_0 + p >= n1) continue;
       o[p] = ((g[p][0] - lo[0]) * e2 + (g[p][1] - lo[1])) * kBoxWidth + (g[p][2] - lo[2]);
-      point_weights<kPlanned>(w, disp, npts, q0 + p * n23, wt[p]);
+      const int x[3] = {x1_0 + p, x2, x3};
+      point_weights<P>(w, disp, npts, q0 + p * n23, x, wt[p]);
     }
     const int step1 = e2 * kBoxWidth;
     for (int c = 0; c < channels; ++c) {
-      if (c + 1 < channels) {
-        stage_box(box[(c + 1) & 1], fields + (size_t)(c + 1) * npts, row_off, col_off, rows,
-                  e3);
-        cp_async_wait<1>();
+      if constexpr (kBuffers == 2) {
+        if (c + 1 < channels) {
+          stage_box(box[(c + 1) & 1], fields + (size_t)(c + 1) * npts, row_off, col_off, rows,
+                    e3);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
       } else {
+        if (c > 0) stage_box(box[0], fields + (size_t)c * npts, row_off, col_off, rows, e3);
         cp_async_wait<0>();
       }
       __syncthreads();
-      const float* bx = box[c & 1];
+      const float* bx = box[c % kBuffers];
       float* oc = out + (size_t)c * npts;
 #pragma unroll
       for (int p = 0; p < kTile1; ++p) {
@@ -377,8 +382,9 @@ __device__ __forceinline__ void tile_interp(const float* __restrict__ fields,
     for (int p = 0; p < kTile1; ++p) {
       if (!in_row || x1_0 + p >= n1) continue;
       const int q = q0 + p * n23;
+      const int x[3] = {x1_0 + p, x2, x3};
       float wp[12];
-      point_weights<kPlanned>(w, disp, npts, q, wp);
+      point_weights<P>(w, disp, npts, q, x, wp);
       int r1[4], r2[4], r3[4];
       stencil_offsets(g[p][0], n1, n23, r1);
       stencil_offsets(g[p][1], n2, n3, r2);
@@ -400,45 +406,27 @@ __global__ void __launch_bounds__(kTileThreads, kMinBlocks)
 apply_kernel(const float* __restrict__ fields, const int32_t* __restrict__ ib,
              const float* __restrict__ w, float* __restrict__ out, int channels, int n1,
              int n2, int n3, int* __restrict__ staged_tiles) {
-  tile_interp<true>(fields, ib, w, nullptr, out, channels, n1, n2, n3, staged_tiles);
+  tile_interp<Policy::kPlanned, 2, kBoxRows>(fields, ib, w, nullptr, out, channels, n1, n2, n3,
+                                             staged_tiles);
 }
 
 __global__ void __launch_bounds__(kTileThreads, kMinBlocks)
 displace_kernel(const float* __restrict__ fields, const float* __restrict__ disp,
                 float* __restrict__ out, int channels, int n1, int n2, int n3,
                 int* __restrict__ staged_tiles) {
-  tile_interp<false>(fields, nullptr, nullptr, disp, out, channels, n1, n2, n3, staged_tiles);
+  tile_interp<Policy::kDisplace, 2, kBoxRows>(fields, nullptr, nullptr, disp, out, channels,
+                                              n1, n2, n3, staged_tiles);
 }
 
-// A kernel of its own rather than C = 1 of displace_kernel: its own register
-// count, its own row in a profile and its own launch counter.
-__global__ void __launch_bounds__(kThreads)
-field_warp_kernel(const float* __restrict__ field, const float* __restrict__ disp,
-                  float* __restrict__ out, int n1, int n2, int n3) {
-  const int64_t npts = (int64_t)n1 * n2 * n3;
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npts) return;
-  const int x3 = (int)(p % n3);
-  const int x2 = (int)((p / n3) % n2);
-  const int x1 = (int)(p / ((int64_t)n2 * n3));
-
-  // the query point in grid units, as ref.tricubic_displace forms it
-  const float q1 = (float)x1 + __ldg(disp + p);
-  const float q2 = (float)x2 + __ldg(disp + npts + p);
-  const float q3 = (float)x3 + __ldg(disp + 2 * npts + p);
-  const float f1 = floorf(q1), f2 = floorf(q2), f3 = floorf(q3);
-  float w1[4], w2[4], w3[4];
-  lagrange(q1 - f1, w1);
-  lagrange(q2 - f2, w2);
-  lagrange(q3 - f3, w3);
-  int64_t r1[4], r2[4], r3[4];
-  rows(0, 0, 0, (int)f1, (int)f2, (int)f3, n1, n2, n3, r1, r2, r3);
-  out[p] = contract(field, r1, r2, r3, w1, w2, w3);
-}
-
-unsigned int blocks_for(int n1, int n2, int n3) {
-  const int64_t npts = (int64_t)n1 * n2 * n3;
-  return (unsigned int)((npts + kThreads - 1) / kThreads);
+// A kernel of its own rather than C = 1 of displace_kernel: its own rounding
+// (q = x + disp first), box, register count, row in a profile and launch
+// counter.
+__global__ void __launch_bounds__(kTileThreads, kWarpMinBlocks)
+field_warp_kernel(const float* __restrict__ fields, const float* __restrict__ disp,
+                  float* __restrict__ out, int channels, int n1, int n2, int n3,
+                  int* __restrict__ staged_tiles) {
+  tile_interp<Policy::kWarp, 1, kWarpBoxRows>(fields, nullptr, nullptr, disp, out, channels,
+                                              n1, n2, n3, staged_tiles);
 }
 
 unsigned int tiles_for(int n1, int n2, int n3) {
@@ -450,9 +438,8 @@ unsigned int tiles_for(int n1, int n2, int n3) {
 
 // Plain C interface (loaded with ctypes).  Each function launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
-// staged_tiles, where not null, is a device int to which the planned apply
-// and the batched displace add the number of tiles that took the staged
-// branch.
+// staged_tiles, where not null, is a device int to which the kernel adds
+// the number of tiles that took the staged branch.
 extern "C" int tricubic_apply_f32(const void* fields, const void* ib, const void* w,
                                   void* out, int channels, int n1, int n2, int n3,
                                   void* staged_tiles, void* stream) {
@@ -471,9 +458,11 @@ extern "C" int tricubic_displace_many_f32(const void* fields, const void* disp, 
   return (int)cudaGetLastError();
 }
 
-extern "C" int tricubic_displace_f32(const void* field, const void* disp, void* out, int n1,
-                                     int n2, int n3, void* stream) {
-  field_warp_kernel<<<blocks_for(n1, n2, n3), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)field, (const float*)disp, (float*)out, n1, n2, n3);
+extern "C" int tricubic_displace_f32(const void* fields, const void* disp, void* out,
+                                     int channels, int n1, int n2, int n3, void* staged_tiles,
+                                     void* stream) {
+  field_warp_kernel<<<tiles_for(n1, n2, n3), kTileThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)fields, (const float*)disp, (float*)out, channels, n1, n2, n3,
+      (int*)staged_tiles);
   return (int)cudaGetLastError();
 }

@@ -52,6 +52,15 @@ def tricubic_displace(field: torch.Tensor, disp: torch.Tensor, *, method: str = 
     return tricubic_displace_cuda(field.contiguous(), disp.contiguous())
 
 
+def tricubic_displace_vec(fields: torch.Tensor, disp: torch.Tensor, *, method: str = "auto"):
+    """``tricubic_displace`` of each field of ``fields`` (C, N1,N2,N3) at
+    x + ``disp`` (3, N1,N2,N3): on a card one launch of the single-field
+    kernel over the C fields."""
+    if not _use_kernel(method, fields):
+        return ref.tricubic_displace_vec(fields, disp)
+    return tricubic_displace_cuda(fields.contiguous(), disp.contiguous())
+
+
 def tricubic_displace_many(
     fields: torch.Tensor, disp: torch.Tensor, *, method: str = "auto"
 ) -> torch.Tensor:

@@ -13,7 +13,10 @@ the CPU:
 * ``interp_apply(fields, plan)`` is the plain version of the planned apply
   (``tricubic_apply_cuda``);
 * ``tricubic_displace_many(fields, disp)`` is the plain version of the
-  batched displace (``tricubic_displace_many_cuda``).
+  batched displace (``tricubic_displace_many_cuda``);
+* ``tricubic_displace(field, disp)`` and, for C fields,
+  ``tricubic_displace_vec(fields, disp)`` are the plain versions of the
+  single-field displace (``tricubic_displace_cuda``).
 
 The gathers run over chunks of ``CHUNK`` points, so that a 256^3 call keeps
 its (4, 4, 4, chunk) index and value blocks to a few GiB on the card.
@@ -139,19 +142,33 @@ def tricubic_displace_many(fields: torch.Tensor, disp: torch.Tensor) -> torch.Te
     return interp_apply(fields, make_interp_plan(disp))
 
 
-def tricubic_points(field: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Interpolate ``field`` (N1,N2,N3) at ``coords`` (3, *Q), grid units."""
-    acc = torch.promote_types(torch.promote_types(field.dtype, coords.dtype), torch.float32)
+def _points(fields: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Each field of ``fields`` (C, N1,N2,N3) at ``coords`` (3, *Q), grid
+    units: the query points and weights are formed once for the C fields."""
+    acc = torch.promote_types(torch.promote_types(fields.dtype, coords.dtype), torch.float32)
     qshape = coords.shape[1:]
     q = coords.reshape(3, -1).to(acc)
     i0 = torch.floor(q)
     w = torch.movedim(lagrange_weights(q - i0), 0, 1)  # (3, 4, M)
-    out = _gather_contract(field.reshape(1, -1).to(acc), i0.to(torch.int64), w, field.shape)
-    return out.reshape(qshape).to(field.dtype)
+    flat = fields.reshape(fields.shape[0], -1).to(acc)
+    out = _gather_contract(flat, i0.to(torch.int64), w, tuple(fields.shape[-3:]))
+    return out.reshape(fields.shape[:1] + qshape).to(fields.dtype)
+
+
+def tricubic_points(field: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Interpolate ``field`` (N1,N2,N3) at ``coords`` (3, *Q), grid units."""
+    return _points(field[None], coords)[0]
 
 
 def tricubic_displace(field: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
     """Evaluate ``field`` (N1,N2,N3) at ``x_i + disp_i``; disp (3, N1,N2,N3)."""
+    return tricubic_displace_vec(field[None], disp)[0]
+
+
+def tricubic_displace_vec(fields: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+    """``tricubic_displace`` of each field of ``fields`` (C, N1,N2,N3) at
+    x + ``disp``, with the query points formed once."""
+    shape3 = tuple(fields.shape[-3:])
     ct = torch.promote_types(disp.dtype, torch.float32)
-    base = _home(field.shape, field.device).to(ct).reshape((3,) + tuple(field.shape))
-    return tricubic_points(field, base + disp.to(ct))
+    base = _home(shape3, fields.device).to(ct).reshape((3,) + shape3)
+    return _points(fields, base + disp.to(ct))

@@ -10,8 +10,9 @@ Counterpart of ``repro/kernels/tricubic.py``:
   departure solve.  Plain version: ``ref.tricubic_displace_many``.
 * ``tricubic_displace_cuda(field, disp)`` replaces
   ``tricubic_displace_pallas`` (body ``_kernel``): one field resampled at
-  x + disp, e.g. the template through a returned deformation.  Plain
-  version: ``ref.tricubic_displace``.
+  x + disp, e.g. the template through a returned deformation, or C fields
+  one after another in one launch.  Plain version:
+  ``ref.tricubic_displace`` (``ref.tricubic_displace_vec`` for C).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates the output, launches on the current stream, raises
@@ -19,14 +20,15 @@ if the launch was refused, and adds one to its entry of ``LAUNCHES``.  The
 choice between a kernel and its plain version is made by the caller from
 the tensor's device (``kernels/ops.py``); nothing here falls back.
 
-The planned apply and the batched displace work on output tiles of
-``TILE`` points and stage a tile's stencil box in shared memory when it is
-small enough; otherwise the same block gathers from global memory (the
-design note at the head of ``csrc/tricubic.cu``).  ``staged_tiles`` is the
-plain model of that rule: how many tiles a launch stages, for a given
-stencil base.  Inside a ``count_staged()`` block the two wrappers have
-the kernel count the tiles it stages, by kernel and grid shape, to hold
-against the model or to show which branch a whole solve took.
+The three kernels work on output tiles of ``TILE`` points and stage a
+tile's stencil box in shared memory when it is small enough; otherwise the
+same block gathers from global memory (the design note at the head of
+``csrc/tricubic.cu``).  ``staged_tiles`` is the plain model of that rule:
+how many tiles a launch stages, for a given stencil base and the kernel's
+box (``BOX_ROWS_OF``); ``warp_base`` is the single-field displace's base.
+Inside a ``count_staged()`` block the wrappers have the kernel count the
+tiles it stages, by kernel and grid shape, to hold against the model or to
+show which branch a whole solve took.
 """
 from __future__ import annotations
 
@@ -38,17 +40,22 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.ref import InterpPlan
 
-# the output tile of the planned apply and the batched displace, points
-# along (x1, x2, x3), and the largest box of source voxels they stage: at
-# most BOX_WIDTH along x3 and BOX_ROWS (x1, x2) rows.  The kTile*,
-# kBoxWidth and kBoxRows of csrc/tricubic.cu.
+# the output tile of the three kernels, points along (x1, x2, x3), and the
+# largest box of source voxels they stage: at most BOX_WIDTH along x3 and
+# BOX_ROWS (x1, x2) rows for the planned apply and the batched displace,
+# WARP_BOX_ROWS for the single-field displace.  The kTile*, kBoxWidth,
+# kBoxRows and kWarpBoxRows of csrc/tricubic.cu.
 TILE = (4, 8, 32)
 BOX_WIDTH = 40
 BOX_ROWS = 144
+WARP_BOX_ROWS = 288
 
 # launches per kernel since the last reset_launches(): a run reads these to
 # show that its path went through the kernels
 LAUNCHES = {"tricubic_apply": 0, "tricubic_displace_many": 0, "tricubic_displace": 0}
+# the box rows of each kernel, by its key in LAUNCHES
+BOX_ROWS_OF = {"tricubic_apply": BOX_ROWS, "tricubic_displace_many": BOX_ROWS,
+               "tricubic_displace": WARP_BOX_ROWS}
 
 
 def reset_launches() -> None:
@@ -63,9 +70,9 @@ _COUNTING: dict | None = None
 
 @contextlib.contextmanager
 def count_staged():
-    """Count the tiles that the planned apply and the batched displace stage.
+    """Count the tiles that the three kernels stage.
 
-    Inside the block every launch of either wrapper adds its staged tiles
+    Inside the block every launch of a wrapper adds its staged tiles
     to a device counter of its kernel and grid shape (one atomic add per
     staged tile), and its tiles to a host count.  Yields a dict that is filled on exit:
     ``{(name, (N1, N2, N3)): {"staged": s, "tiles": t}}``, ``name`` a key
@@ -121,7 +128,7 @@ def _check_fields(fields: torch.Tensor) -> tuple[int, int, int, int]:
 
 
 def n_tiles(shape3) -> int:
-    """Output tiles of one launch of the planned apply or batched displace."""
+    """Output tiles of one launch of any of the three kernels."""
     return math.prod(-(-n // t) for n, t in zip(shape3, TILE))
 
 
@@ -148,15 +155,37 @@ def tile_extents(base: torch.Tensor) -> torch.Tensor:
     return box[1] - box[0] + 4
 
 
-def staged_tiles(base: torch.Tensor) -> int:
-    """How many output tiles the planned apply or the batched displace
-    stages in shared memory, for stencil bases ``base`` (3, N1, N2, N3):
-    ``plan.ib`` for the apply, ``floor(disp)`` for the displace.  A tile
-    stages when its stencils span at most ``BOX_WIDTH`` voxels along x3 and
-    at most ``BOX_ROWS`` (x1, x2) rows (``tile_extents``).
+def warp_base(disp: torch.Tensor) -> torch.Tensor:
+    """(3, N1, N2, N3) int32: the single-field displace's stencil base,
+    ``floor(x + disp) - x`` with ``x + disp`` formed in f32 first, as the
+    kernel and ``ref.tricubic_displace`` form it.  Not ``floor(disp)``:
+    the two differ where ``x + disp`` rounds up to an integer."""
+    shape3 = tuple(disp.shape[1:])
+    home = ref._home(shape3, disp.device).reshape((3,) + shape3)
+    return torch.floor(home.to(torch.float32) + disp.to(torch.float32)).to(torch.int32) - home
+
+
+def stencil_base(name: str, disp: torch.Tensor | None = None,
+                 plan: InterpPlan | None = None) -> torch.Tensor:
+    """The stencil base of one launch of kernel ``name`` (a key of
+    ``LAUNCHES``): ``plan.ib`` for the apply, ``floor(disp)`` for the
+    batched displace, ``warp_base(disp)`` for the single-field displace."""
+    if name == "tricubic_apply":
+        return plan.ib
+    if name == "tricubic_displace_many":
+        return torch.floor(disp).to(torch.int32)
+    return warp_base(disp)
+
+
+def staged_tiles(base: torch.Tensor, box_rows: int = BOX_ROWS) -> int:
+    """How many output tiles a kernel stages in shared memory, for stencil
+    bases ``base`` (3, N1, N2, N3) (``stencil_base``).  A tile stages when
+    its stencils span at most ``BOX_WIDTH`` voxels along x3 and at most
+    ``box_rows`` (x1, x2) rows (``tile_extents``), the kernel's entry of
+    ``BOX_ROWS_OF``.
     """
     extent = tile_extents(base)
-    return int(((extent[2] <= BOX_WIDTH) & (extent[0] * extent[1] <= BOX_ROWS)).sum())
+    return int(((extent[2] <= BOX_WIDTH) & (extent[0] * extent[1] <= box_rows)).sum())
 
 
 def _raise_on(code: int, name: str) -> None:
@@ -203,17 +232,22 @@ def tricubic_displace_many_cuda(fields: torch.Tensor, disp: torch.Tensor) -> tor
     return out
 
 
-def tricubic_displace_cuda(field: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
-    """Single-field displace: ``field`` (N1,N2,N3) f32 at x + ``disp`` (3, N..)."""
-    if field.ndim != 3:
-        raise ValueError(f"field must be (N1, N2, N3), got shape {tuple(field.shape)}")
-    _, n1, n2, n3 = _check_fields(field.unsqueeze(0))
-    _check("disp", disp, torch.float32, (3, n1, n2, n3), field.device)
+def tricubic_displace_cuda(fields: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+    """Single-field displace: ``fields`` (N1,N2,N3) f32 at x + ``disp``
+    (3, N..); a stack (C, N1,N2,N3) takes one launch for its C fields.
+    Returns the shape of ``fields``."""
+    if fields.ndim not in (3, 4):
+        raise ValueError(f"fields must be (N1, N2, N3) or (C, N1, N2, N3), got shape "
+                         f"{tuple(fields.shape)}")
+    stack = fields if fields.ndim == 4 else fields.unsqueeze(0)
+    c, n1, n2, n3 = _check_fields(stack)
+    _check("disp", disp, torch.float32, (3, n1, n2, n3), fields.device)
+    counter = _path_counter("tricubic_displace", (n1, n2, n3), fields.device)
     lib = build.library()
-    out = torch.empty_like(field)
-    with torch.cuda.device(field.device):
+    out = torch.empty_like(fields)
+    with torch.cuda.device(fields.device):
         code = lib.tricubic_displace_f32(
-            field.data_ptr(), disp.data_ptr(), out.data_ptr(), n1, n2, n3,
+            fields.data_ptr(), disp.data_ptr(), out.data_ptr(), c, n1, n2, n3, counter,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(code, "tricubic_displace_f32")

@@ -8,10 +8,10 @@ Each kernel is held against its plain PyTorch version on the card, at
 small shapes (cubic, non-cubic with N3 % 8 != 0, displacements beyond any
 halo), and the default solve and a coarse-to-fine solve are shown to
 launch the tricubic kernels.  On smooth displacements, whose tiles the
-planned apply and the batched displace stage in shared memory, the two
-agree with their plain versions bit for bit and stage as many tiles as the
-plain model ``tricubic.staged_tiles`` says; random displacements take the
-unstaged branch.  Whether a
+three tricubic kernels stage in shared memory, they agree with their plain
+versions bit for bit and stage as many tiles as the plain model
+``tricubic.staged_tiles`` says; random displacements take the unstaged
+branch.  Whether a
 card is present is decided inside the ``cuda`` fixture, so every worker
 collects the same tests; without a card they skip.  Imports neither JAX
 nor the JAX package.
@@ -145,7 +145,59 @@ def test_count_staged_counts_every_launch(cuda):
 def test_single_field_displace_kernel_matches_plain(cuda, shape):
     f, d = _inputs(cuda, shape, 1)
     got = tricubic.tricubic_displace_cuda(f[0], d)
-    torch.testing.assert_close(got, ref.tricubic_displace(f[0], d), atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(got, ref.tricubic_displace(f[0], d), atol=0, rtol=0)
+
+
+def _warp_disp(cuda, shape, field):
+    """K3's displacements: smooth (most tiles stage), strained (some or
+    none do) or random (none do), with two points whose x + disp rounds up
+    to an integer in f32."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    if field == "random":
+        d = (torch.rand((3,) + shape, generator=gen, device=cuda) * 2 - 1) * 12.0
+    else:
+        d = smooth_disp(shape, 2.0 if field == "smooth" else 16.0, gen, cuda)
+    d[:, 1, 2, 3] = -1e-8
+    d[:, -1, -1, -1] = -1e-8
+    return d.contiguous()
+
+
+@pytest.mark.parametrize("field", ["smooth", "strained", "random"])
+@pytest.mark.parametrize("shape", SMOOTH_SHAPES)
+def test_single_field_displace_kernel_bit_exact_with_staged_count(cuda, shape, field):
+    """K3 in both branches: bit for bit with ref.tricubic_displace, and as
+    many staged tiles as the model counts with its own box and base."""
+    f = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    d = _warp_disp(cuda, shape, field)
+    tricubic.reset_launches()
+    with tricubic.count_staged() as counts:
+        got = tricubic.tricubic_displace_cuda(f, d)
+    assert tricubic.LAUNCHES["tricubic_displace"] == 1
+    torch.testing.assert_close(got, ref.tricubic_displace(f, d), atol=0, rtol=0)
+    model = tricubic.staged_tiles(tricubic.warp_base(d), tricubic.WARP_BOX_ROWS)
+    assert counts[("tricubic_displace", shape)] == {"staged": model,
+                                                     "tiles": tricubic.n_tiles(shape)}
+    if field == "smooth":
+        assert model > 0
+    if field == "random":
+        assert model == 0
+
+
+@pytest.mark.parametrize("shape", SMOOTH_SHAPES)
+def test_displace_vec_one_launch_bit_exact(cuda, shape):
+    """ops.tricubic_displace_vec: one K3 launch over C = 3 fields, each bit
+    for bit with its own call of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    f = torch.randn((3,) + shape, generator=gen, device=cuda)
+    d = smooth_disp(shape, 4.0, gen, cuda)
+    tricubic.reset_launches()
+    with tricubic.count_staged() as counts:
+        got = ops.tricubic_displace_vec(f, d)
+    assert tricubic.LAUNCHES["tricubic_displace"] == 1
+    want = torch.stack([ref.tricubic_displace(fc, d) for fc in f])
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert counts[("tricubic_displace", shape)]["staged"] == tricubic.staged_tiles(
+        tricubic.warp_base(d), tricubic.WARP_BOX_ROWS)
 
 
 @pytest.mark.parametrize("shape", [(8, 16, 128), (16, 8, 256), (12, 20, 9)])

@@ -17,6 +17,7 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.tricubic import (  # noqa: E402
     tricubic_apply_pallas,
@@ -220,6 +221,52 @@ def test_plain_single_field_displace_zero_disp_exact(rng):
     np.testing.assert_allclose(ref.tricubic_displace(_t(f), _t(zero)).numpy(), f, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_displace_vec_matches_jax(rng, shape):
+    """ops.tricubic_displace_vec, the reference's public C-field entry (a
+    vmap of its single-field displace), on the same numpy inputs, with
+    displacements beyond any halo."""
+    f, d = _problem(rng, shape, 3, lim=7.0)
+    want = jops.tricubic_displace_vec(jnp.asarray(f), jnp.asarray(d))
+    got = ops.tricubic_displace_vec(_t(f), _t(d))
+    assert got.shape == (3,) + shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
+
+
+def test_displace_vec_matches_pallas_interpret(rng):
+    """The same against the reference's vmap over its TPU kernel in
+    interpret mode, at a tile-divisible shape with |disp| within its halo."""
+    shape, tile, halo = (8, 8, 16), (4, 4, 8), 2
+    f, d = _problem(rng, shape, 2, lim=halo - 0.05)
+    want = jops.tricubic_displace_vec(jnp.asarray(f), jnp.asarray(d), method="pallas",
+                                      tile=tile, halo=halo)
+    got = ops.tricubic_displace_vec(_t(f), _t(d))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
+
+
+def test_plain_displace_vec_is_each_field_bit_for_bit(rng):
+    """ref.tricubic_displace_vec forms the query points once; each channel
+    equals its own ref.tricubic_displace bit for bit, also across chunks."""
+    f, d = _problem(rng, (12, 20, 9), 3, lim=9.0)
+    got = ref.tricubic_displace_vec(_t(f), _t(d))
+    want = torch.stack([ref.tricubic_displace(_t(fc), _t(d)) for fc in f])
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_displace_vec_dispatch_on_cpu(rng, monkeypatch):
+    """On the CPU "auto" takes the plain version and launches nothing;
+    "cuda" refuses CPU tensors."""
+    f, d = _problem(rng, (8, 8, 8), 2, lim=5.0)
+    tricubic.reset_launches()
+    np.testing.assert_array_equal(ops.tricubic_displace_vec(_t(f), _t(d)).numpy(),
+                                  ref.tricubic_displace_vec(_t(f), _t(d)).numpy())
+    assert tricubic.LAUNCHES["tricubic_displace"] == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.tricubic_displace_vec(_t(f), _t(d), method="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        tricubic.tricubic_displace_cuda(_t(f), _t(d))
+
+
 def test_plan_from_numpy_carries_the_jax_plan(rng):
     f, d = _problem(rng, (8, 12, 16), 2, lim=5.0)
     jplan = jref.make_interp_plan(jnp.asarray(d))
@@ -358,8 +405,13 @@ def test_tricubic_ab_builds_the_first_design_beside_the_tree_and_needs_a_card():
     assert "staged_tiles" not in base and "staged_tiles" in build.SOURCES[0].read_text()
     for name in ("tricubic_apply_f32", "tricubic_displace_many_f32"):
         assert len(tricubic_ab.BASELINE_SIGNATURES[name]) + 1 == len(build.SIGNATURES[name])
+    # the first design's K3 takes neither a channel count nor the counter
+    name = "tricubic_displace_f32"
+    assert len(tricubic_ab.BASELINE_SIGNATURES[name]) + 2 == len(build.SIGNATURES[name])
+    assert "field_warp_kernel" in tricubic_ab.SYMBOLS
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, script, "--sizes", "8"], env=env, capture_output=True,
                           text=True)
     assert proc.returncode != 0 and "CUDA card" in proc.stderr
     assert proc.stdout == ""
+
