@@ -48,7 +48,8 @@ VARIANTS = {
     "fmad_false": build.NVCC_FLAGS,
     "fmad_true": tuple("-fmad=true" if f == "-fmad=false" else f for f in build.NVCC_FLAGS),
 }
-SYMBOLS = ("apply_kernel", "displace_kernel", "field_warp_kernel")
+SYMBOLS = ("apply_kernel", "displace_kernel", "field_warp_kernel", "apply_cohort_kernel",
+           "displace_cohort_kernel")
 
 
 def _registers(log: str) -> dict:
@@ -102,23 +103,27 @@ def raw_launcher(lib, name: str, f, disp=None, plan=None, counter=None, staged_a
     than the kernel.  ``name``, a key of ``tricubic.LAUNCHES``:
     "tricubic_apply" (K1, ``plan``), "tricubic_displace_many" (K2,
     ``disp``) or "tricubic_displace" (K3, ``f`` of shape (1, N..), ``disp``).
-    ``counter``: the staged-tile counter; ``staged_arg=False`` for a
-    library whose entry points take none and whose K3 takes no channel
-    count either (the first design).  The
+    A cohort's K1 or K2 launch takes ``f`` (C, S, N..) with a cohort plan
+    or displacement.  ``counter``: the staged-tile counter;
+    ``staged_arg=False`` for a library whose entry points take none, whose
+    K1 and K2 take no subject count and whose K3 takes no channel count
+    either (the first design).  The
     function holds every tensor whose pointer it passes: a closure that
     kept only ``data_ptr()`` would let a tensor be freed and the kernel read
     whatever the allocator put there next."""
-    c, n1, n2, n3 = f.shape
+    c, (n1, n2, n3) = f.shape[0], f.shape[-3:]
     out = torch.empty_like(f)
     stream = torch.cuda.current_stream().cuda_stream
     extra = (None if counter is None else counter.data_ptr(),) if staged_arg else ()
+    subjects = (f.shape[1] if f.ndim == 5 else 1,) if staged_arg else ()
     if name == "tricubic_apply":
         fn = lib.tricubic_apply_f32
-        args = (f.data_ptr(), plan.ib.data_ptr(), plan.w.data_ptr(), out.data_ptr(), c, n1, n2,
-                n3, *extra, stream)
+        args = (f.data_ptr(), plan.ib.data_ptr(), plan.w.data_ptr(), out.data_ptr(), c,
+                *subjects, n1, n2, n3, *extra, stream)
     elif name == "tricubic_displace_many":
         fn = lib.tricubic_displace_many_f32
-        args = (f.data_ptr(), disp.data_ptr(), out.data_ptr(), c, n1, n2, n3, *extra, stream)
+        args = (f.data_ptr(), disp.data_ptr(), out.data_ptr(), c, *subjects, n1, n2, n3, *extra,
+                stream)
     else:
         fn = lib.tricubic_displace_f32
         chans = (c,) if staged_arg else ()

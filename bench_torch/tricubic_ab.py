@@ -22,6 +22,17 @@ flags, and times both in one process at each of ``--sizes`` (cubic grids):
   registration's deformation, which the template is warped through), on
   each strained field and on the rough one.
 
+Then, for the tree alone (the first design has no subject axis), a
+cohort case at the largest of ``--sizes``: K1 at C=2 and K2 at C=3 over
+``COHORT_SUBJECTS`` = 4 subjects in one launch (the cohort width of the
+registration server), fields (C, S, N..) against S
+smooth displacements of ``--max-disp`` voxels (a cohort's departure
+fields, drawn from their own generator so that the cases above keep their
+inputs), timed beside the S single-subject launches on the contiguous
+slabs of the same inputs, one after another; the cohort launch must equal
+those launches and the plain cohort version bit for bit, and count the
+tiles the model counts for its subjects.
+
 Smooth displacements are ``fmad_ab.smooth_disp`` with the amplitude given
 at 256^3 and scaled by n/256 at other sizes (the same physical field on
 every grid).  Inputs are made on the card from ``--seed``.  Each kernel is
@@ -39,8 +50,11 @@ Prints the card's name and power limit, each library's ``ptxas`` report
 (registers, shared memory, spill bytes), one JSON line per round and a
 last JSON line with each library's median ms per case, the ratio
 tree / baseline, the max abs error against the plain version and the
-tree's staged share.  Exits 1 if the tree is not bit for bit equal to the
-plain version or stages other tiles than the model.  Needs one CUDA card
+tree's staged share, and the cohort cases' medians (one launch over S
+subjects and the sum of S single-subject launches) with their ratio.
+Exits 1 if the tree is not bit for bit equal to the plain version (or, a
+cohort launch, to its single-subject launches) or stages other tiles than
+the model.  Needs one CUDA card
 and ``nvcc``.
 """
 from __future__ import annotations
@@ -62,6 +76,7 @@ from repro_torch.kernels import build, ref, tricubic
 
 HERE = Path(__file__).resolve().parent
 BASELINE = HERE / "tricubic_baseline.cu"
+COHORT_SUBJECTS = 4  # the cohort case's S: the server's slots, the cohort path's width
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # the first design's entry points: no staged-tile counter, and K3 takes one
 # field with no channel count
@@ -71,7 +86,8 @@ BASELINE_SIGNATURES = {
     "tricubic_displace_f32": [_VP, _VP, _VP, _I, _I, _I, _VP],
 }
 TREE_SIGNATURES = {name: build.SIGNATURES[name] for name in BASELINE_SIGNATURES}
-SYMBOLS = ("apply_kernel", "displace_kernel", "field_warp_kernel")
+SYMBOLS = ("apply_kernel", "displace_kernel", "field_warp_kernel", "apply_cohort_kernel",
+           "displace_cohort_kernel")
 
 
 def _ptxas(log: str) -> dict:
@@ -126,6 +142,56 @@ def _cases(n: int, args, gen, warp_gen, dev) -> dict:
     warp = smooth_disp((n, n, n), args.warp_disp * n / 256, warp_gen, dev)
     cases["K3_warp"] = ("tricubic_displace", f1, warp, None)
     return cases
+
+
+def _cohort(n: int, subjects: int, max_disp: float, lib, rounds: int, gen, dev) -> dict:
+    """The tree's K1 (C=2) and K2 (C=3) over ``subjects`` subjects at n^3 in
+    one launch, against the same subjects launched one by one: bit for bit
+    (also against the plain cohort version), the staged tiles against the
+    model, and the medians over ``rounds`` of CUDA-event timings, in turns."""
+    shape = (n, n, n)
+    disp = torch.stack([smooth_disp(shape, max_disp * n / 256, gen, dev)
+                        for _ in range(subjects)])
+    plan = ref.make_interp_plan(disp)
+    f3 = torch.randn((3, subjects) + shape, generator=gen, device=dev)
+    reps = max(1, 50 * 256 // n)
+    out = {}
+    for name, c in (("tricubic_apply", 2), ("tricubic_displace_many", 3)):
+        f = f3[:c].contiguous()
+        slabs = [f[:, s].contiguous() for s in range(subjects)]
+        subj = [(disp[s], ref.InterpPlan(plan.ib[s], plan.w[s], plan.halo_need))
+                for s in range(subjects)]
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = raw_launcher(lib, name, f, disp, plan, counter=counter)()
+        singles = [raw_launcher(lib, name, slabs[s], *subj[s])() for s in range(subjects)]
+        torch.cuda.synchronize()
+        want = plain(name, f, disp, plan)
+        err_plain = float((got - want).abs().max())
+        err_single = max(float((got[:, s] - singles[s]).abs().max()) for s in range(subjects))
+        del want, singles
+        staged = int(counter.item())
+        model = tricubic.staged_tiles(tricubic.stencil_base(name, disp, plan))
+        cohort_fn = raw_launcher(lib, name, f, disp, plan)
+        single_fns = [raw_launcher(lib, name, slabs[s], *subj[s]) for s in range(subjects)]
+
+        def one_by_one():
+            for fn in single_fns:
+                fn()
+
+        ms = {"cohort": [], "singles": []}
+        for r in range(rounds):
+            for key in (("cohort", "singles") if r % 2 == 0 else ("singles", "cohort")):
+                ms[key].append(time_ms(cohort_fn if key == "cohort" else one_by_one, reps))
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        out[f"{name}_C{c}_S{subjects}@{n}"] = {
+            "median_ms": med, "cohort_over_singles": med["cohort"] / med["singles"],
+            "ms": ms, "max_abs_err_vs_plain": err_plain,
+            "max_abs_err_vs_single_launches": err_single,
+            "staged_tiles": {"tree": staged, "model": model,
+                             "tiles": subjects * tricubic.n_tiles(shape)},
+        }
+        del f, slabs, cohort_fn, single_fns
+    return out
 
 
 def main() -> int:
@@ -196,6 +262,11 @@ def main() -> int:
         del launches
         torch.cuda.empty_cache()
 
+    cohort_gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    cohort = _cohort(max(args.sizes), COHORT_SUBJECTS, args.max_disp, libs["tree"],
+                     args.rounds, cohort_gen, dev)
+    print(json.dumps({"cohort": cohort}), flush=True)
+
     med = {key: {v: statistics.median(ts) for v, ts in t.items()} for key, t in times.items()}
     print(json.dumps({
         "sizes": args.sizes, "rounds": args.rounds, "max_disp_at_256": args.max_disp,
@@ -203,9 +274,15 @@ def main() -> int:
         "rough": args.rough, "median_ms": med,
         "tree_over_baseline": {k: m["tree"] / m["baseline"] for k, m in med.items()},
         "ptxas": ptxas, "max_abs_err_vs_plain": errs, "staged_tiles": staged,
+        "cohort": {k: {"median_ms": c["median_ms"], "cohort_over_singles": c["cohort_over_singles"]}
+                   for k, c in cohort.items()},
     }), flush=True)
     bad = {k: e for k, e in errs.items() if e["tree"] != 0.0}
+    bad.update({k: c for k, c in cohort.items()
+                if c["max_abs_err_vs_plain"] != 0.0 or c["max_abs_err_vs_single_launches"] != 0.0})
     mismatch = {k: s for k, s in staged.items() if s["tree"] != s["model"]}
+    mismatch.update({k: c["staged_tiles"] for k, c in cohort.items()
+                     if c["staged_tiles"]["tree"] != c["staged_tiles"]["model"]})
     if bad or mismatch:
         print(json.dumps({"failed": {"not_bit_exact": bad, "staged_mismatch": mismatch}}),
               file=sys.stderr)

@@ -15,7 +15,14 @@ before it and read just after:
 * ``main_path``: the default single-level ``register()`` at 256^3;
 * ``warp``: the template resampled through the returned deformation (the
   single-field displace kernel);
-* ``spectral``: the fused biharmonic scaling of a 256^3 spectrum.
+* ``spectral``: the fused biharmonic scaling of a 256^3 spectrum;
+* ``cohort_solve_parity``: ``gn.solve_cohort`` of 4 subjects at 64^3
+  gives the same solve through the kernels as through the plain versions,
+  and the same counts as 4 independent solves;
+* ``cohort_path``: ``gn.solve_cohort`` of 4 brain phantom pairs at 256^3,
+  beside the 4 independent single-level solves of the same pairs;
+* ``serve_path``: ``launch.reg_serve.serve_jobs`` of 6 such pairs through
+  4 slots, with its refills and per-job billing.
 
 The launches of K1 and K2 on the solve paths must equal the counts derived
 from the code.  K1-K3 stage a tile's stencil box in shared memory where it
@@ -26,8 +33,12 @@ stage as many tiles as the plain model ``tricubic.staged_tiles`` says; on
 ``main_path`` and ``multilevel_path`` every launch counts its staged
 tiles (``tricubic.count_staged``), and K1 and K2 must each stage at least
 ``MIN_PATH_STAGED_SHARE`` of their tiles at each grid size.  Then it times
-the kernels beside their bounds (K1 and K2 also at 64^3 and 128^3) and
-profiles one more Newton iteration by kernel class.  Every phase prints one JSON
+the kernels beside their bounds (K1 and K2 also at 64^3 and 128^3, and
+over the cohort's 4 subjects in one launch) and profiles one more Newton
+iteration by kernel class, single-level, V-cycle and cohort.  K1 and K2
+with their subject axis are also held, on cohorts of 4 random and smooth
+displacements (``cohort_kernel_parity``), against the plain cohort
+versions and against one launch per subject, bit for bit.  Every phase prints one JSON
 line; any failed phase ends the run with a nonzero exit code.  The last
 line is ``{"ok": true, "device": {...}}``.
 
@@ -37,6 +48,7 @@ result when no CUDA device is present.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -72,6 +84,13 @@ MAX_NEWTON = 3
 ML_SOLVER = dict(beta=1e-3, beta_continuation=(1e-1, 1e-2), n_t=4, max_newton=8, gtol=1e-2,
                  max_cg=40)
 ML_LEVELS = 3
+# the cohort: the reference's cohort width (BENCH_cohort.json subjects 4,
+# serve slots 4) on brain_like(n, seed=s), s = 0..S-1; the server streams 6
+# such jobs, cut to SERVE_MAX_NEWTON Newton iterations
+COHORT_S = 4
+COHORT_V_RTOL = 5e-4  # cohort against independent solves (tests/test_cohort.py)
+SERVE_JOBS = 6
+SERVE_MAX_NEWTON = 2
 SPECTRAL_SHAPES = ((N_MAIN,) * 3, (8, 16, 128), (16, 8, 256), NONCUBIC)
 SPECTRAL_BETAS = ((1.0,), (1e-2, 1.0))
 SPECTRAL_RTOL = 2e-5  # kernel against plain version (tests/test_kernels.py)
@@ -82,30 +101,33 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, an FMA counte
 # the rounding contract in csrc/tricubic.cu), so each multiply and each add
 # is an instruction of its own
 F32_UNFUSED_OPS_PER_S = F32_FLOPS_PER_S / 2
-# each kernel: its source, the TPU kernel it replaces, its __global__ symbol
-# and the phase whose run gives its launches in the kernels line
+# each kernel: its source, the TPU kernel it replaces, its __global__
+# symbols (K1 and K2 have a second one for a cohort of subjects) and the
+# phase whose run gives its launches in the kernels line
 KERNELS = {
     "tricubic_apply": {
         "source": "src/repro_torch/kernels/csrc/tricubic.cu",
         "replaces": "src/repro/kernels/tricubic.py:243",
-        "symbol": "apply_kernel", "path": "main_path",
+        "symbols": ("apply_kernel", "apply_cohort_kernel"), "path": "main_path",
     },
     "tricubic_displace_many": {
         "source": "src/repro_torch/kernels/csrc/tricubic.cu",
         "replaces": "src/repro/kernels/tricubic.py:202",
-        "symbol": "displace_kernel", "path": "main_path",
+        "symbols": ("displace_kernel", "displace_cohort_kernel"), "path": "main_path",
     },
     "tricubic_displace": {
         "source": "src/repro_torch/kernels/csrc/tricubic.cu",
         "replaces": "src/repro/kernels/tricubic.py:57",
-        "symbol": "field_warp_kernel", "path": "warp",
+        "symbols": ("field_warp_kernel",), "path": "warp",
     },
     "biharmonic_scale": {
         "source": "src/repro_torch/kernels/csrc/spectral_diag.cu",
         "replaces": "src/repro/kernels/spectral_diag.py:27",
-        "symbol": "biharmonic_kernel", "path": "spectral",
+        "symbols": ("biharmonic_kernel",), "path": "spectral",
     },
 }
+
+SYMBOLS = tuple(sym for meta in KERNELS.values() for sym in meta["symbols"])
 
 
 class SmokeFailure(RuntimeError):
@@ -173,8 +195,8 @@ def phase_build() -> None:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            current = next((k["symbol"] for k in KERNELS.values()
-                            if _is_symbol(k["symbol"], m.group(1))), m.group(1))
+            current = next((sym for sym in SYMBOLS if _is_symbol(sym, m.group(1))),
+                           m.group(1))
             per_kernel[current] = {}
             continue
         if current is None:
@@ -189,7 +211,7 @@ def phase_build() -> None:
             per_kernel[current]["registers"] = int(m.group(1))
             s = re.search(r"(\d+) bytes smem", line)
             per_kernel[current]["smem_bytes"] = int(s.group(1)) if s else 0
-    require(set(per_kernel) >= {k["symbol"] for k in KERNELS.values()},
+    require(set(per_kernel) >= set(SYMBOLS),
             f"ptxas report lacks a kernel: {log}")
     emit("build", seconds=secs, dir=str(build.build_dir()), ptxas=per_kernel)
     spills = {k: v for k, v in per_kernel.items()
@@ -678,7 +700,7 @@ def phase_spectral(images, dev) -> dict:
 
 def _kernel_class(name: str) -> str:
     for i, (kname, meta) in enumerate(KERNELS.items()):
-        if _is_symbol(meta["symbol"], name):
+        if any(_is_symbol(sym, name) for sym in meta["symbols"]):
             return f"K{i + 1} {kname}"
     if re.search(r"fft|radix", name, re.I):
         return "cuFFT"
@@ -710,7 +732,8 @@ def _profile_newton(phase: str, n: int, newton, **extra) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
     busy = sum(by_class.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit(phase, n=n, **extra, cg_iters=log.cg_iters, armijo_trials=log.ls_iters,
+    cg = log.cg_iters.tolist() if torch.is_tensor(log.cg_iters) else log.cg_iters
+    emit(phase, n=n, **extra, cg_iters=cg, armijo_trials=log.ls_iters,
          wall_ms_profiled=wall * 1e3,
          device_ms=by_class if busy else "not measured: the profiler recorded no CUDA activity",
          device_busy_ms=busy, idle_share=(1 - busy / (wall * 1e3)) if busy else None,
@@ -765,6 +788,346 @@ def phase_ml_profile(ml, dev) -> None:
                                     precond=precond)[1],
         grids=out["grids"], precond="vcycle",
     )
+
+
+# --------------------------------------------------------------------------- #
+def _cohort_case(name, f, disp, plan=None) -> dict:
+    """One launch of K1 (``plan``) or K2 (``disp``) over a cohort, fields
+    ``f`` (C, S, N..), with the staged-tile counter: bit for bit against
+    the plain cohort version and against one single-subject launch per
+    subject on its contiguous slab (not counted), and the staged tiles
+    against the model summed over the subjects."""
+    from fmad_ab import plain
+    from repro_torch.kernels import ref, tricubic
+
+    subjects, shape3 = f.shape[1], tuple(f.shape[2:])
+    with tricubic.count_staged() as counts:
+        if name == "tricubic_apply":
+            got = tricubic.tricubic_apply_cuda(f, plan)
+        else:
+            got = tricubic.tricubic_displace_many_cuda(f, disp)
+    err = _compare(got, plain(name, f, disp, plan))
+    err_single = 0.0
+    for s in range(subjects):
+        slab = f[:, s].contiguous()
+        if name == "tricubic_apply":
+            one = tricubic.tricubic_apply_cuda(
+                slab, ref.InterpPlan(plan.ib[s], plan.w[s], plan.halo_need))
+        else:
+            one = tricubic.tricubic_displace_many_cuda(slab, disp[s].contiguous())
+        err_single = max(err_single, _compare(got[:, s], one))
+        del one
+    del got
+    kernel = counts[(name, shape3)]
+    model = tricubic.staged_tiles(tricubic.stencil_base(name, disp, plan))
+    require(kernel["staged"] == model,
+            f"{name} over {subjects} subjects staged {kernel['staged']} tiles, the model {model}")
+    require(kernel["tiles"] == subjects * tricubic.n_tiles(shape3),
+            f"{name}: {kernel['tiles']} tiles booked for {subjects} subjects")
+    return {"kernel": name, "shape": list(shape3), "C": int(f.shape[0]), "S": subjects,
+            "max_disp": float(disp.abs().max()), "max_abs_err": err,
+            "max_abs_err_vs_single_launches": err_single, "staged_tiles": kernel["staged"],
+            "tiles": kernel["tiles"], "staged_share": kernel["staged"] / kernel["tiles"]}
+
+
+def phase_cohort_kernel_parity(dev, errs) -> None:
+    """K1 (C=1..3) and K2 (C=3) with the subject axis over COHORT_S
+    subjects, at 256^3 and on the non-cubic grid, on random displacements
+    (no tile stages) and smooth ones (one per subject): each against the
+    plain cohort version and against per-subject launches, bit for bit, and
+    its staged tiles against the model per subject."""
+    from fmad_ab import smooth_disp
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    cases = []
+    for shape, smooth in (((N_MAIN,) * 3, SMOOTH_DISP), (NONCUBIC, NONCUBIC_SMOOTH_DISP)):
+        for field in ("random", "smooth"):
+            if field == "smooth":
+                d = torch.stack([smooth_disp(shape, smooth, gen, dev) for _ in range(COHORT_S)])
+            else:
+                d = torch.rand((COHORT_S, 3) + shape, generator=gen, device=dev)
+                d = (d * 2 - 1) * MAX_DISP
+            plan = ref.make_interp_plan(d)
+            f = torch.randn((3, COHORT_S) + shape, generator=gen, device=dev)
+            for name, c in (("tricubic_apply", 1), ("tricubic_apply", 2), ("tricubic_apply", 3),
+                            ("tricubic_displace_many", 3)):
+                case = _cohort_case(name, f[:c].contiguous(), d, plan)
+                errs[name] = max(errs[name], case["max_abs_err"])
+                cases.append({"field": field, **case})
+            del d, plan, f
+    emit("cohort_kernel_parity", tricubic="bit for bit, and per-subject launches bit for bit",
+         cases=cases)
+
+
+def _cohort_images(n, dev, seeds):
+    """``brain_like(n, seed=s)`` for each of ``seeds``, presmoothed as
+    ``register()`` presmooths its inputs: (S, N..) stacks and the grid."""
+    from repro_torch.core.spectral import SpectralOps
+    from repro_torch.data import synthetic
+
+    pairs = [synthetic.brain_like(n, seed=s, device=dev) for s in seeds]
+    grid = pairs[0][2]
+    ops = SpectralOps(grid, device=dev)
+    rho_R = torch.stack([ops.smooth(p[0]) for p in pairs])
+    rho_T = torch.stack([ops.smooth(p[1]) for p in pairs])
+    return rho_R, rho_T, grid
+
+
+def _cohort_cfg(method="auto", max_newton=MAX_NEWTON):
+    from repro_torch.core import gauss_newton as gn
+
+    return gn.GNConfig(max_newton=max_newton, interp_method=method)
+
+
+def _independent(rho_R, rho_T, grid, cfg, dev) -> list[dict]:
+    """Each subject's single-level ``gn.solve`` of the same images and
+    config, with its seconds."""
+    from repro_torch.core import gauss_newton as gn
+
+    outs = []
+    for s in range(rho_R.shape[0]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gn.solve(rho_R[s], rho_T[s], grid, cfg, device=dev)
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        outs.append(out)
+    return outs
+
+
+def _cohort_counts(cohort, singles) -> dict:
+    """Per-subject Newton and matvec counts, and per-iteration cg_iters, of
+    a cohort and of the independent solves."""
+    return {
+        "cohort": {"newton_iters": cohort["newton_iters"],
+                   "hessian_matvecs": cohort["hessian_matvecs"],
+                   "cg_iters": [[h["cg_iters"][s] for h in cohort["history"] if h["active"][s]]
+                                for s in range(len(singles))]},
+        "independent": {"newton_iters": [o["newton_iters"] for o in singles],
+                        "hessian_matvecs": [o["hessian_matvecs"] for o in singles],
+                        "cg_iters": [[h["cg_iters"] for h in o["history"]] for o in singles]},
+    }
+
+
+def _v_rel(cohort, singles) -> list[float]:
+    return [float((cohort["v"][s] - o["v"]).abs().max()) / max(float(o["v"].abs().max()), 1e-30)
+            for s, o in enumerate(singles)]
+
+
+def phase_cohort_solve_parity(dev) -> None:
+    """``gn.solve_cohort`` of COHORT_S subjects at 64^3 through the kernels
+    and through the plain versions: the same per-subject counts and
+    per-iteration cg_iters, max|dv| == 0, and no launch on the plain run;
+    and through the kernels against the independent single-level solves:
+    the same counts and max|dv|/max|v| < COHORT_V_RTOL."""
+    from repro_torch.core import gauss_newton as gn
+
+    rho_R, rho_T, grid = _cohort_images(N_SOLVE_PARITY, dev, range(COHORT_S))
+    outs, launches = {}, {}
+    for method in ("auto", "ref"):
+        _reset_launches()
+        outs[method] = gn.solve_cohort(rho_R, rho_T, grid, _cohort_cfg(method), device=dev)
+        torch.cuda.synchronize()
+        launches[method] = _launches()
+    singles = _independent(rho_R, rho_T, grid, _cohort_cfg(), dev)
+    counts = {m: _cohort_counts(o, singles)["cohort"] for m, o in outs.items()}
+    vs_singles = _cohort_counts(outs["auto"], singles)
+    dv = float((outs["auto"]["v"] - outs["ref"]["v"]).abs().max())
+    rel = _v_rel(outs["auto"], singles)
+    expected = _expected_cohort_launches(outs["auto"]["history"])
+    emit("cohort_solve_parity", n=N_SOLVE_PARITY, subjects=COHORT_S, counts=counts,
+         independent=vs_singles["independent"], max_abs_dv_kernel_vs_plain=dv,
+         max_rel_dv_vs_independent=rel, launches=launches, expected_launches_auto=expected)
+    require(counts["auto"] == counts["ref"], f"cohort counts differ, kernels vs plain: {counts}")
+    require(dv == 0.0, f"cohort max |v_kernel - v_ref| = {dv} != 0")
+    require(all(n == 0 for n in launches["ref"].values()),
+            f"the plain cohort run launched kernels: {launches['ref']}")
+    _require_launched(launches["auto"], expected, "cohort_solve_parity")
+    require(vs_singles["cohort"] == vs_singles["independent"],
+            f"cohort counts differ from the independent solves: {vs_singles}")
+    require(max(rel) < COHORT_V_RTOL, f"cohort against independent: max|dv|/max|v| = {rel}")
+
+
+def _expected_cohort_launches(history) -> dict:
+    """Launches of ``gn.solve_cohort``, counted from its history: each
+    cohort Newton iteration launches as ``_solve_launches``'s single one,
+    one launch per call over all subjects, with ``c`` the largest live
+    subject's cg_iters (``pcg_masked`` loops while any subject is live) and
+    ``a`` the Armijo halvings the subjects shared.  No diagnostics."""
+    k2, k1 = _solve_launches([{"cg_iters": max(h["cg_iters"]),
+                               "armijo_trials": h["armijo_trials"]} for h in history])
+    return {"tricubic_apply": k1, "tricubic_displace_many": k2, "tricubic_displace": 0,
+            "biharmonic_scale": 0}
+
+
+def phase_cohort(dev) -> dict:
+    """``gn.solve_cohort`` of brain_like(256, seed=s), s = 0..COHORT_S-1,
+    default config cut to MAX_NEWTON Newton iterations, through the
+    kernels: walls from the ``gn.cohort_iter`` spans, per-subject results,
+    peak memory, launches against the count from the code, and K1/K2's
+    staged share.  Then the same pairs' independent single-level solves in
+    the same call: counts (their equality with the cohort's is recorded,
+    not gated: batched and single cuFFT transforms may round differently)
+    and seconds per subject."""
+    from repro_torch import telemetry
+    from repro_torch.core import gauss_newton as gn
+    from repro_torch.kernels import tricubic
+
+    rho_R, rho_T, grid = _cohort_images(N_MAIN, dev, range(COHORT_S))
+    cfg = _cohort_cfg()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with telemetry.ListSink() as sink, tricubic.count_staged() as counts:
+        out = gn.solve_cohort(rho_R, rho_T, grid, cfg, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _launches()
+    staged = _path_staged(counts)
+    walls = [r["wall_s"] for r in sink.records
+             if r["kind"] == "span" and r["name"] == "gn.cohort_iter"]
+    iters = [{k: h[k] for k in ("iter", "J", "gnorm", "rel_gnorm", "cg_iters", "active",
+                                "armijo_trials", "status")} | {"wall_s": w}
+             for h, w in zip(out["history"], walls)]
+    expected = _expected_cohort_launches(out["history"])
+    singles = _independent(rho_R, rho_T, grid, cfg, dev)
+    counts_ = _cohort_counts(out, singles)
+    emit("cohort_path", n=N_MAIN, subjects=COHORT_S, seconds=secs, iterations=iters,
+         newton_iters=out["newton_iters"], hessian_matvecs=out["hessian_matvecs"],
+         status=out["status"], compiled_executables=out["compiled_executables"],
+         max_memory_allocated=peak, launches=launches, expected_launches=expected,
+         staged_tiles=staged,
+         independent={"seconds": [o["seconds"] for o in singles],
+                      "seconds_total": sum(o["seconds"] for o in singles),
+                      **counts_["independent"],
+                      "J": [[h["J"] for h in o["history"]] for o in singles],
+                      "gnorm": [[h["gnorm"] for h in o["history"]] for o in singles]},
+         counts_equal_independent=counts_["cohort"] == counts_["independent"],
+         max_rel_dv_vs_independent=_v_rel(out, singles))
+    _require_launched(launches, expected, "cohort_path")
+    _require_staged(staged, "cohort_path")
+    scalars = [x for h in out["history"] for key in ("J", "gnorm") for x in h[key]]
+    require(all(np.isfinite(scalars)), f"cohort_path: non-finite J or gnorm: {scalars}")
+    require(bool(torch.isfinite(out["v"]).all()), "cohort_path: non-finite velocity")
+    require(out["compiled_executables"] == 1,
+            f"cohort_path: {out['compiled_executables']} step signatures")
+    del singles
+    return {"out": out, "images": (rho_R, rho_T), "grid": grid, "cfg": cfg,
+            "launches": launches, "staged": staged}
+
+
+class _RecordingStep:
+    """A ``gn.make_cohort_step`` step that keeps each call's active mask and
+    per-subject cg_iters, so that the server's billing can be recomputed
+    from what the step returned."""
+
+    def __init__(self, step):
+        self.step, self.ops, self.calls = step, step.ops, []
+
+    def __call__(self, v, g0_forcing, active, *rest):
+        v_new, log = self.step(v, g0_forcing, active, *rest)
+        self.calls.append((active.cpu().numpy(), log.cg_iters.cpu().numpy()))
+        return v_new, log
+
+    def _cache_size(self) -> int:
+        return self.step._cache_size()
+
+
+def phase_serve(dev) -> dict:
+    """``serve_jobs`` of SERVE_JOBS brain phantom pairs at 256^3 through
+    COHORT_S slots, default config cut to SERVE_MAX_NEWTON: each job's
+    billing and status, the server's iterations and refills, and its step
+    signatures.  Gates: one step signature, at least 2 refills, every job
+    retired with a status, and every job billed the sum of its slot's
+    cg_iters over the steps it held the slot."""
+    from unittest import mock
+
+    from repro_torch import telemetry
+    from repro_torch.core import gauss_newton as gn
+    from repro_torch.kernels import build, tricubic
+    from repro_torch.launch import reg_serve
+
+    rho_R, rho_T, _ = _cohort_images(N_MAIN, dev, range(SERVE_JOBS))
+    jobs = [reg_serve.RegJob(job_id=s, rho_R=rho_R[s], rho_T=rho_T[s])
+            for s in range(SERVE_JOBS)]
+    steps, make_step = [], gn.make_cohort_step
+
+    def recording(*args, **kwargs):
+        steps.append(_RecordingStep(make_step(*args, **kwargs)))
+        return steps[-1]
+
+    lib = build.library()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(gn, "make_cohort_step", recording), telemetry.ListSink() as sink, \
+            tricubic.count_staged() as counts:
+        out = reg_serve.serve_jobs(jobs, _cohort_cfg(max_newton=SERVE_MAX_NEWTON),
+                                   slots=COHORT_S, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = _launches()
+    staged = _path_staged(counts)
+    (bucket,) = out["buckets"].values()
+    events = {r["job_id"]: r for r in sink.records if r["kind"] == "job"}
+    calls = steps[0].calls if len(steps) == 1 else []
+    per_job = []
+    for res in out["results"]:
+        ev = events[str(res.job_id)]
+        residency = calls[ev["admitted_step"]:ev["retired_step"]]
+        per_job.append({"job": res.job_id, "slot": ev["slot"], "status": res.status,
+                        "newton_iters": res.newton_iters, "hessian_matvecs": res.hessian_matvecs,
+                        "steps": [ev["admitted_step"], ev["retired_step"]],
+                        "slot_cg_iters": [int(cg[ev["slot"]]) for _, cg in residency],
+                        "rel_gnorm": res.rel_gnorm})
+    emit("serve_path", n=N_MAIN, jobs=SERVE_JOBS, slots=COHORT_S, max_newton=SERVE_MAX_NEWTON,
+         seconds=secs, cohort_iterations=bucket["cohort_iterations"], refills=bucket["refills"],
+         compiled_executables=out["compiled_executables"], per_job=per_job,
+         occupancy=[int(a.sum()) for a, _ in calls],
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+         staged_tiles=staged)
+    require(len(steps) == 1, f"serve_path built {len(steps)} cohort steps")
+    require(out["compiled_executables"] == 1,
+            f"serve_path: {out['compiled_executables']} step signatures")
+    require(build.library() is lib, "serve_path loaded another kernel library")
+    require(bucket["refills"] >= 2, f"serve_path: {bucket['refills']} refills")
+    require(sorted(j["job"] for j in per_job) == list(range(SERVE_JOBS)),
+            f"serve_path: jobs retired {[j['job'] for j in per_job]}")
+    require(all(j["status"] in ("converged", "stagnated", "max_newton") for j in per_job),
+            f"serve_path: statuses {[j['status'] for j in per_job]}")
+    for j in per_job:
+        require(j["hessian_matvecs"] == sum(j["slot_cg_iters"]),
+                f"serve_path: job {j['job']} billed {j['hessian_matvecs']}, its slot's "
+                f"cg_iters {j['slot_cg_iters']}")
+        require(j["newton_iters"] == len(j["slot_cg_iters"]),
+                f"serve_path: job {j['job']} held its slot for {j['slot_cg_iters']}")
+    for name in ("tricubic_apply", "tricubic_displace_many"):
+        require(launches[name] > 0, f"{name} was not launched on serve_path")
+    require(all(np.isfinite(float(r.rel_gnorm)) for r in out["results"]),
+            "serve_path: non-finite rel_gnorm")
+    _require_staged(staged, "serve_path")
+    return {"launches": launches, "staged": staged}
+
+
+def phase_cohort_profile(cohort, dev) -> None:
+    """One more cohort Newton iteration at 256^3 from the cohort's solved
+    velocities, every subject active, by kernel class."""
+    from repro_torch.core import gauss_newton as gn
+    from repro_torch.core import objective as obj
+    from repro_torch.core.spectral import SpectralOps
+
+    out, (rho_R, rho_T), grid, cfg = cohort["out"], cohort["images"], cohort["grid"], cohort["cfg"]
+    ops = SpectralOps(grid, device=dev)
+    prob = obj.Problem(grid, rho_R, rho_T, cfg.beta, cfg.n_t, cfg.incompressible)
+    g0 = torch.tensor(out["history"][0]["gnorm"], dtype=torch.float32, device=dev)
+    active = torch.ones(COHORT_S, dtype=torch.bool, device=dev)
+    _profile_newton("cohort_profile", N_MAIN,
+                    lambda: gn.newton_iteration_cohort(out["v"], g0, active, prob, ops, cfg)[1],
+                    subjects=COHORT_S)
 
 
 # --------------------------------------------------------------------------- #
@@ -879,6 +1242,55 @@ def phase_kernel_times(solve, warp, spectral, dev) -> dict:
     return rows
 
 
+def phase_cohort_kernel_times(cohort, dev) -> dict:
+    """K1 (C=2) and K2 (C=3) over the cohort's COHORT_S subjects in one
+    launch at 256^3, on the cohort's own fields: the departure plans of its
+    solved velocities with a C=2 stack of its templates (K1), the RK2
+    midpoint displacements -dt v with the velocity components (K2).  Each
+    row: CUDA events over 20 launches (the plain cohort version: 3),
+    beside the COHORT_S single-subject launches on the contiguous slabs
+    one after another, and the bound from the cohort's bytes and
+    operations."""
+    from fmad_ab import plain, raw_launcher, time_ms
+    from repro_torch.core import planner
+    from repro_torch.kernels import build, ref
+
+    lib = build.library()
+    out, (_, rho_T), grid, cfg = cohort["out"], cohort["images"], cohort["grid"], cohort["cfg"]
+    dt = 1.0 / cfg.n_t
+    h = torch.tensor(grid.spacing, dtype=torch.float32, device=dev).reshape(3, 1, 1, 1)
+    vg = out["v"] / h  # (S, 3, N..)
+    disp = planner.departure_displacement(out["v"], grid, dt)
+    plan = ref.make_interp_plan(disp)
+    inputs = {
+        "tricubic_apply": (torch.stack([rho_T, rho_T * rho_T]).contiguous(), None, plan),
+        "tricubic_displace_many": (torch.swapaxes(vg, 0, 1).contiguous(),
+                                   (-dt * vg).contiguous(), None),
+    }
+    rows = {}
+    for name, (f, d, p) in inputs.items():
+        c, subjects = f.shape[0], f.shape[1]
+        npts = math.prod(f.shape[2:])
+        slabs = [(f[:, s].contiguous(), None if d is None else d[s].contiguous(),
+                  None if p is None else ref.InterpPlan(p.ib[s], p.w[s], p.halo_need))
+                 for s in range(subjects)]
+        singles = [raw_launcher(lib, name, *slab) for slab in slabs]
+
+        def one_by_one():
+            for fn in singles:
+                fn()
+
+        nbytes, flops = _tile_bytes_flops(name, c, subjects * npts)
+        rows[name] = {"C": c, "S": subjects,
+                      "ms": time_ms(raw_launcher(lib, name, f, d, p), reps=20),
+                      "single_launches_ms": time_ms(one_by_one, reps=20),
+                      "plain_ms": time_ms(lambda: plain(name, f, d, p), reps=3, warmup=1),
+                      **_bounds(nbytes, flops), "bytes": nbytes, "flops": flops}
+        del slabs, singles
+    emit("cohort_kernel_times", n=N_MAIN, rows=rows)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -888,8 +1300,10 @@ def main() -> int:
     info = phase_device()
     phase_build()
     errs = phase_kernel_parity(dev)
+    phase_cohort_kernel_parity(dev, errs)
     phase_solve_parity(dev)
     phase_ml_solve_parity(dev)
+    phase_cohort_solve_parity(dev)
     ml = phase_multilevel(dev)
     phase_ml_profile(ml, dev)
     del ml
@@ -902,10 +1316,21 @@ def main() -> int:
     times = phase_kernel_times(solve, warp, spectral, dev)
     del solve
     phase_profile(out, images, dev)
+    del out, images
     launches = {"main_path": main_launches, "warp": warp["launches"],
                 "spectral": spectral["launches"]}
     # the share of the tiles of each kernel's launches on its path that staged
     path_staged = {"main_path": main_staged, "warp": warp["staged"], "spectral": {}}
+    del warp, spectral
+    torch.cuda.empty_cache()
+    cohort = phase_cohort(dev)
+    cohort_times = phase_cohort_kernel_times(cohort, dev)
+    phase_cohort_profile(cohort, dev)
+    launches["cohort_path"], path_staged["cohort_path"] = cohort["launches"], cohort["staged"]
+    del cohort
+    torch.cuda.empty_cache()
+    serve = phase_serve(dev)
+    launches["serve_path"], path_staged["serve_path"] = serve["launches"], serve["staged"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],
          "replaces": meta["replaces"], "path": meta["path"], "parity": "ok",
@@ -915,7 +1340,11 @@ def main() -> int:
          "bound_unfused_ms": times[name]["bound_unfused_ms"],
          "library_ms": times[name]["library_ms"],
          "staged_share": (path_staged[meta["path"]][name]["all"]["share"]
-                          if name in path_staged[meta["path"]] else None)}
+                          if name in path_staged[meta["path"]] else None),
+         # every path's launches, and K1/K2 over the cohort's subjects in one
+         # launch
+         "launches_by_path": {path: n[name] for path, n in launches.items()},
+         "cohort": cohort_times.get(name)}
         for name, meta in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -1,7 +1,8 @@
 """Periodic Cartesian grid on Omega = [0, 2pi)^3 (paper §II, §III-B1).
 
 Scalars have shape ``(N1, N2, N3)``; vector fields are stored
-component-major as ``(3, N1, N2, N3)``.  Counterpart of
+component-major as ``(3, N1, N2, N3)``; a cohort of S subjects stacks them
+as ``(S, N..)`` and ``(S, 3, N..)``.  Counterpart of
 ``repro/core/grid.py``; the wavenumber helpers stay in numpy so both
 packages build their k-space multipliers from the same integers.
 """
@@ -80,6 +81,16 @@ class Grid:
 
     def norm_sq(self, a: torch.Tensor) -> torch.Tensor:
         return self.inner(a, a)
+
+    def inner_per(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Per-subject inner product of cohort stacks ``a``, ``b`` (S, ...):
+        every axis but the first reduced, at least f32.  Returns (S,)."""
+        acc = torch.promote_types(torch.promote_types(a.dtype, b.dtype), torch.float32)
+        prod = (a.to(acc) * b.to(acc)).reshape(a.shape[0], -1)
+        return torch.sum(prod, dim=1) * self.cell_volume
+
+    def norm_sq_per(self, a: torch.Tensor) -> torch.Tensor:
+        return self.inner_per(a, a)
 
 
 def make_grid(n, dtype=torch.float32) -> Grid:

@@ -25,7 +25,7 @@ from repro_torch.core.spectral import SpectralOps
 
 class Problem(NamedTuple):
     grid: Grid
-    rho_R: torch.Tensor  # (N1, N2, N3)
+    rho_R: torch.Tensor  # (N1, N2, N3); a cohort's (S, N1, N2, N3)
     rho_T: torch.Tensor
     beta: float
     n_t: int
@@ -50,6 +50,10 @@ def _project(ops: SpectralOps, field: torch.Tensor, incompressible: bool) -> tor
     return ops.leray(field) if incompressible else field
 
 
+def _norm_sq(grid: Grid, x: torch.Tensor, cohort: bool) -> torch.Tensor:
+    return grid.norm_sq_per(x) if cohort else grid.norm_sq(x)
+
+
 def evaluate_objective(
     v: torch.Tensor, prob: Problem, ops: SpectralOps, interp=None, plan: SLPlan | None = None
 ):
@@ -58,7 +62,10 @@ def evaluate_objective(
     Returns ``(J, (misfit, reg, rho_series, plan))``.  Without ``plan`` a
     forward-only plan is built (an Armijo trial never transports backward),
     and in compressible mode ``div v`` shares the energy's forward transform.
+    A cohort velocity (S, 3, N..) with images (S, N..) gives per-subject
+    (S,) values.
     """
+    cohort = v.ndim == 5
     with ops.batch() as sb:
         h_reg = sb.reg_energy(v, prob.beta)
         h_div = sb.div(v) if (plan is None and not prob.incompressible) else None
@@ -68,7 +75,7 @@ def evaluate_objective(
             divv=None if h_div is None else h_div.get(),
         )
     rho_series = semilag.transport_state(prob.rho_T, plan, interp)
-    misfit = 0.5 * prob.grid.norm_sq(rho_series[-1] - prob.rho_R)
+    misfit = 0.5 * _norm_sq(prob.grid, rho_series[-1] - prob.rho_R, cohort)
     reg = h_reg.get()
     return misfit + reg, (misfit, reg, rho_series, plan)
 
@@ -79,8 +86,10 @@ def newton_state(v: torch.Tensor, prob: Problem, ops: SpectralOps, interp=None) 
     Every v-only spectral op (``div v``, ``beta Lap^2 v``, the energy) rides
     one coalesced transform pair; the gradient series is one batched
     transform over all time slices; in incompressible mode ``P b`` costs one
-    more.
+    more.  A cohort (``v`` (S, 3, N..)) shares every one of them across its
+    subjects, and its misfit, energy and J are per subject, (S,).
     """
+    cohort = v.ndim == 5
     with ops.batch() as sb:
         h_divv = None if prob.incompressible else sb.div(v)
         h_regv = sb.reg_apply(v, prob.beta)
@@ -93,11 +102,12 @@ def newton_state(v: torch.Tensor, prob: Problem, ops: SpectralOps, interp=None) 
     rho1 = rho_series[-1]
     # adjoint terminal condition lam(1) = rho_R - rho(1)   (eq. 3)
     lam_series = semilag.transport_adjoint(prob.rho_R - rho1, plan, interp)
-    # grad rho(t_k) for all k in one batched transform: (n_t+1, 3, N..)
+    # grad rho(t_k) for all k in one batched transform, the component axis
+    # at -4: (n_t+1, 3, N..), a cohort's (n_t+1, S, 3, N..)
     grad_rho_series = torch.movedim(ops.grad(rho_series), 0, -4)
     b = semilag.time_integral_b(lam_series, grad_rho_series, plan.dt)
     g = h_regv.get() + _project(ops, b, prob.incompressible)
-    misfit = 0.5 * prob.grid.norm_sq(rho1 - prob.rho_R)
+    misfit = 0.5 * _norm_sq(prob.grid, rho1 - prob.rho_R, cohort)
     reg = h_reg_e.get()
     return NewtonState(
         v=v,

@@ -39,13 +39,22 @@ def departure_displacement(v: torch.Tensor, grid: Grid, dt: float, interp=None) 
     ``v`` (3, N..) is in physical units on [0, 2pi)^3; the result is
     ``(X - x)/h`` per dimension.  ``interp=None`` uses the default
     ``kops.make_interp()`` (the kernel on CUDA tensors).
+
+    A cohort velocity (S, 3, N..) yields per-subject displacements
+    (S, 3, N..).  The interpolation puts the subject axis at -4 of the
+    fields, so the component axis is swapped into the channel slot for the
+    one batched self-interpolation, fields (3, S, N..) against the
+    displacement (S, 3, N..), and swapped back.
     """
     interp = interp or kops.make_interp()
     ct = torch.promote_types(v.dtype, torch.float32)
     h = torch.tensor(grid.spacing, dtype=ct, device=v.device).reshape(3, 1, 1, 1)
     vg = v.to(ct) / h  # velocity in grid cells per unit time
     d_star = -dt * vg
-    v_star = interp(vg, d_star)
+    if v.ndim == 5:
+        v_star = torch.swapaxes(interp(torch.swapaxes(vg, 0, 1), d_star), 0, 1)
+    else:
+        v_star = interp(vg, d_star)
     return (-0.5 * dt) * (vg + v_star)
 
 

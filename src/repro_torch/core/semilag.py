@@ -7,7 +7,9 @@ precomputed ``InterpPlan`` operators) and an ``Interp`` executor; each
 interpolation is one planned apply, ``tricubic_apply_cuda`` on the card.
 The fields of one RK2 stage ride one batched call (e.g. ``lam`` with
 ``lam * div v`` in the compressible adjoint, C = 2).  ``lax.scan`` becomes
-a Python loop.
+a Python loop.  A cohort of S subjects runs the same solvers on (S, N..)
+scalars and (S, 3, N..) vectors with a cohort plan: the stacks of a stage
+are then (C, S, N..), the subject axis at -4.
 
 General scheme for  d_t nu + v . grad nu = f  (paper eq. (7)):
 
@@ -113,7 +115,9 @@ def transport_inc_adjoint(lam1: torch.Tensor, plan: SLPlan, interp=None) -> torc
 def time_integral_b(
     lam_series: torch.Tensor, grad_rho_series: torch.Tensor, dt: float
 ) -> torch.Tensor:
-    """lam_series (n_t+1, N..), grad_rho_series (n_t+1, 3, N..) -> (3, N..).
+    """lam_series (n_t+1, N..), grad_rho_series (n_t+1, 3, N..) -> (3, N..);
+    for a cohort, lam (n_t+1, S, N..) and grad (n_t+1, S, 3, N..) ->
+    (S, 3, N..).
 
     A broadcast product and a sum over t.  ``torch.einsum`` lowers this
     contraction to a cuBLAS gemv that took 15.6 ms per call at 256^3 on an
@@ -124,7 +128,7 @@ def time_integral_b(
     w[0] *= 0.5
     w[-1] *= 0.5
     wlam = w.reshape((n,) + (1,) * (lam_series.ndim - 1)) * lam_series
-    return torch.sum(wlam[:, None] * grad_rho_series, dim=0)
+    return torch.sum(wlam.unsqueeze(-4) * grad_rho_series, dim=0)
 
 
 # --------------------------------------------------------------------------- #
@@ -132,8 +136,16 @@ def time_integral_b(
 # periodic displacement u = y - x:  d_t u + v.grad u = -v,  u(0) = 0.
 # --------------------------------------------------------------------------- #
 def deformation_displacement(v: torch.Tensor, plan: SLPlan, interp=None) -> torch.Tensor:
-    """Returns u(1) (3, N1,N2,N3) in physical units; y1 = x + u."""
-    at_fwd = _bind_fwd(plan, interp)
+    """Returns u(1) (3, N1,N2,N3) in physical units; y1 = x + u.  A cohort
+    velocity (S, 3, N..) returns per-subject displacements (S, 3, N..): the
+    component axis is swapped into the channel slot around each batched
+    interpolation, whose subject axis is -4."""
+    at = _bind_fwd(plan, interp)
+    if v.ndim == 5:
+        def at_fwd(x):
+            return torch.swapaxes(at(torch.swapaxes(x, 0, 1)), 0, 1)
+    else:
+        at_fwd = at
     dt = plan.dt
     f = -v
     # f is time-independent, so f(X) is the same every step (C=3, once)

@@ -273,9 +273,11 @@ class SpectralOps:
     def _reg_energy_spec(self, spec: torch.Tensor, beta) -> torch.Tensor:
         """beta/2 ||Lap v||^2 read off the forward spectrum of ``v`` (Parseval):
         ``h^3 sum_x |u|^2 = h^3/N sum_k |U(k)|^2``, with the rfft modes whose
-        conjugate partners are not stored counted twice."""
+        conjugate partners are not stored counted twice.  Reduces the
+        component and space axes, so a cohort (S, 3, k..) spectrum yields
+        (S,)."""
         mag = (spec.real**2 + spec.imag**2) * self.fft.spec_weight
-        e = torch.sum(self.fft.ksq**2 * mag)
+        e = torch.sum(self.fft.ksq**2 * mag, dim=(-4, -3, -2, -1))
         scale = self.grid.cell_volume / self.grid.num_points
         return 0.5 * beta * scale * e
 
@@ -327,7 +329,8 @@ class SpectralOps:
         return self.inv_real(self._smooth_scale(sigma) * self.fwd_real(f))
 
     def reg_energy(self, v: torch.Tensor, beta) -> torch.Tensor:
-        """beta/2 ||Lap v||^2 via Parseval on the forward spectrum (no inverse)."""
+        """beta/2 ||Lap v||^2 via Parseval on the forward spectrum (no inverse);
+        per subject, (S,), for a cohort velocity (S, 3, N..)."""
         return self._reg_energy_spec(self.fwd_real(v), beta)
 
     def jacobian_det(self, disp: torch.Tensor) -> torch.Tensor:

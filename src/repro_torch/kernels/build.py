@@ -33,8 +33,8 @@ LOG_NAME = "ptxas.log"
 
 _VP, _I, _FP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
 SIGNATURES = {
-    "tricubic_apply_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP],
-    "tricubic_displace_many_f32": [_VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP],
+    "tricubic_apply_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP],
+    "tricubic_displace_many_f32": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP],
     "tricubic_displace_f32": [_VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP],
     "biharmonic_scale_f32": [_VP, _VP, _VP, _VP, _FP, _I, _I, _I, _I, _VP],
 }

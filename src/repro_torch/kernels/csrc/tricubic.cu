@@ -98,6 +98,20 @@
 // kernels/tricubic.py states the tile and box rule in Python
 // (staged_tiles; warp_base for K3's g), and each entry point takes an
 // optional counter of the tiles that took the staged branch.
+//   Subject axis (K1, K2).  A cohort of S registrations launches once, on a
+// grid of (tiles, S) blocks: blockIdx.y is the subject s.  The cohort layout
+// puts the subjects under the channels, fields (C, S, N..) against ib
+// (S, 3, N..), w (S, 3, 4, N..) or disp (S, 3, N..), so a block first moves
+// its plan or displacement on by s * 3 * N (ib, disp) or s * 12 * N (w), and
+// channel c of subject s starts at (c * S + s) * N: the channel stride is
+// S * N, with S = gridDim.y.  Each subject's tile stages, and contracts, as
+// the same tile of a single-subject launch on that subject's slab would,
+// so a launch over S subjects equals S single-subject launches bit for bit.
+// The axis is a template flag of tile_interp: a launch of S > 1 subjects
+// runs apply_cohort_kernel or displace_cohort_kernel, one of S = 1 (every
+// single registration) apply_kernel or displace_kernel, whose code is that
+// of before the axis, so the axis costs a single registration nothing.  K3
+// has no subject axis.
 //
 // Rounding contract.  Kernel and plain version (kernels/ref.py) do the same
 // IEEE f32 operations in the same order, so they agree bit for bit:
@@ -247,8 +261,9 @@ __device__ __forceinline__ void point_weights(const float* __restrict__ w,
 }
 
 // One output tile of C channels under policy P, staging boxes of at most
-// kRows (x1, x2) rows in kBuffers buffers.
-template <Policy P, int kBuffers, int kRows>
+// kRows (x1, x2) rows in kBuffers buffers; with kSubjects, of the cohort's
+// subject blockIdx.y (the subject axis, design note).
+template <Policy P, int kBuffers, int kRows, bool kSubjects>
 __device__ __forceinline__ void tile_interp(const float* __restrict__ fields,
                                             const int32_t* __restrict__ ib,
                                             const float* __restrict__ w,
@@ -262,6 +277,24 @@ __device__ __forceinline__ void tile_interp(const float* __restrict__ fields,
   __shared__ int red[6][kTile2];
 
   const int n23 = n2 * n3, npts = n1 * n23;
+  // the subject axis (design note): this block's subject's fields, output,
+  // and plan or displacement.  Channel c of the subject is then c * S * npts
+  // further on, S = gridDim.y, read where it is used so that no register
+  // holds the stride.  Without kSubjects the code is that of the kernels
+  // before the axis, character for character where it matters: forms that
+  // differed from it only in how they spell c * npts spilled K3 at 80
+  // registers and slowed K2 by 5% (PERF.md).
+  if constexpr (kSubjects) {
+    const size_t subject = blockIdx.y;
+    fields += subject * npts;
+    out += subject * npts;
+    if constexpr (P == Policy::kPlanned) {
+      ib += subject * 3 * npts;
+      w += subject * 12 * npts;
+    } else {
+      disp += subject * 3 * npts;
+    }
+  }
   const int tid = threadIdx.x, lane = tid % kTile3, warp = tid / kTile3;
   const int tiles3 = (n3 + kTile3 - 1) / kTile3, tiles2 = (n2 + kTile2 - 1) / kTile2;
   const int t12 = blockIdx.x / tiles3;
@@ -353,19 +386,25 @@ __device__ __forceinline__ void tile_interp(const float* __restrict__ fields,
     for (int c = 0; c < channels; ++c) {
       if constexpr (kBuffers == 2) {
         if (c + 1 < channels) {
-          stage_box(box[(c + 1) & 1], fields + (size_t)(c + 1) * npts, row_off, col_off, rows,
-                    e3);
+          stage_box(box[(c + 1) & 1],
+                    fields + (kSubjects ? (size_t)((c + 1) * gridDim.y) * npts
+                                        : (size_t)(c + 1) * npts),
+                    row_off, col_off, rows, e3);
           cp_async_wait<1>();
         } else {
           cp_async_wait<0>();
         }
       } else {
-        if (c > 0) stage_box(box[0], fields + (size_t)c * npts, row_off, col_off, rows, e3);
+        if (c > 0) {
+          stage_box(box[0],
+                    fields + (kSubjects ? (size_t)(c * gridDim.y) * npts : (size_t)c * npts),
+                    row_off, col_off, rows, e3);
+        }
         cp_async_wait<0>();
       }
       __syncthreads();
       const float* bx = box[c % kBuffers];
-      float* oc = out + (size_t)c * npts;
+      float* oc = out + (kSubjects ? (size_t)(c * gridDim.y) * npts : (size_t)c * npts);
 #pragma unroll
       for (int p = 0; p < kTile1; ++p) {
         if (!in_row || x1_0 + p >= n1) continue;
@@ -390,13 +429,14 @@ __device__ __forceinline__ void tile_interp(const float* __restrict__ fields,
       stencil_offsets(g[p][1], n2, n3, r2);
       stencil_offsets(g[p][2], n3, 1, r3);
       for (int c = 0; c < channels; ++c) {
-        const float* fc = fields + (size_t)c * npts;
-        out[(size_t)c * npts + q] = contract_run(
-            [&](int a, int b, int d) {
-              const int r3d = d == 0 ? r3[0] : d == 1 ? r3[1] : d == 2 ? r3[2] : r3[3];
-              return __ldg(fc + (r1[a] + r2[b] + r3d));
-            },
-            &wp[0], &wp[4], &wp[8]);
+        const float* fc = fields + (kSubjects ? (size_t)(c * gridDim.y) * npts : (size_t)c * npts);
+        out[(kSubjects ? (size_t)(c * gridDim.y) * npts : (size_t)c * npts) + q] =
+            contract_run(
+                [&](int a, int b, int d) {
+                  const int r3d = d == 0 ? r3[0] : d == 1 ? r3[1] : d == 2 ? r3[2] : r3[3];
+                  return __ldg(fc + (r1[a] + r2[b] + r3d));
+                },
+                &wp[0], &wp[4], &wp[8]);
       }
     }
   }
@@ -406,16 +446,35 @@ __global__ void __launch_bounds__(kTileThreads, kMinBlocks)
 apply_kernel(const float* __restrict__ fields, const int32_t* __restrict__ ib,
              const float* __restrict__ w, float* __restrict__ out, int channels, int n1,
              int n2, int n3, int* __restrict__ staged_tiles) {
-  tile_interp<Policy::kPlanned, 2, kBoxRows>(fields, ib, w, nullptr, out, channels, n1, n2, n3,
-                                             staged_tiles);
+  tile_interp<Policy::kPlanned, 2, kBoxRows, false>(fields, ib, w, nullptr, out, channels, n1,
+                                                    n2, n3, staged_tiles);
 }
 
 __global__ void __launch_bounds__(kTileThreads, kMinBlocks)
 displace_kernel(const float* __restrict__ fields, const float* __restrict__ disp,
                 float* __restrict__ out, int channels, int n1, int n2, int n3,
                 int* __restrict__ staged_tiles) {
-  tile_interp<Policy::kDisplace, 2, kBoxRows>(fields, nullptr, nullptr, disp, out, channels,
-                                              n1, n2, n3, staged_tiles);
+  tile_interp<Policy::kDisplace, 2, kBoxRows, false>(fields, nullptr, nullptr, disp, out,
+                                                     channels, n1, n2, n3, staged_tiles);
+}
+
+// apply_kernel and displace_kernel over a cohort of S = gridDim.y > 1
+// subjects: the same template with the subject axis, a kernel of its own so
+// that a single registration's launch keeps its code (design note).
+__global__ void __launch_bounds__(kTileThreads, kMinBlocks)
+apply_cohort_kernel(const float* __restrict__ fields, const int32_t* __restrict__ ib,
+                    const float* __restrict__ w, float* __restrict__ out, int channels, int n1,
+                    int n2, int n3, int* __restrict__ staged_tiles) {
+  tile_interp<Policy::kPlanned, 2, kBoxRows, true>(fields, ib, w, nullptr, out, channels, n1,
+                                                   n2, n3, staged_tiles);
+}
+
+__global__ void __launch_bounds__(kTileThreads, kMinBlocks)
+displace_cohort_kernel(const float* __restrict__ fields, const float* __restrict__ disp,
+                       float* __restrict__ out, int channels, int n1, int n2, int n3,
+                       int* __restrict__ staged_tiles) {
+  tile_interp<Policy::kDisplace, 2, kBoxRows, true>(fields, nullptr, nullptr, disp, out,
+                                                    channels, n1, n2, n3, staged_tiles);
 }
 
 // A kernel of its own rather than C = 1 of displace_kernel: its own rounding
@@ -425,8 +484,8 @@ __global__ void __launch_bounds__(kTileThreads, kWarpMinBlocks)
 field_warp_kernel(const float* __restrict__ fields, const float* __restrict__ disp,
                   float* __restrict__ out, int channels, int n1, int n2, int n3,
                   int* __restrict__ staged_tiles) {
-  tile_interp<Policy::kWarp, 1, kWarpBoxRows>(fields, nullptr, nullptr, disp, out, channels,
-                                              n1, n2, n3, staged_tiles);
+  tile_interp<Policy::kWarp, 1, kWarpBoxRows, false>(fields, nullptr, nullptr, disp, out,
+                                                     channels, n1, n2, n3, staged_tiles);
 }
 
 unsigned int tiles_for(int n1, int n2, int n3) {
@@ -438,21 +497,27 @@ unsigned int tiles_for(int n1, int n2, int n3) {
 
 // Plain C interface (loaded with ctypes).  Each function launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
+// subjects (K1, K2) is the cohort's S, 1 for a single registration: fields
+// and out (C, S, N..), ib (S, 3, N..), w (S, 3, 4, N..), disp (S, 3, N..).
 // staged_tiles, where not null, is a device int to which the kernel adds
 // the number of tiles that took the staged branch.
 extern "C" int tricubic_apply_f32(const void* fields, const void* ib, const void* w,
-                                  void* out, int channels, int n1, int n2, int n3,
-                                  void* staged_tiles, void* stream) {
-  apply_kernel<<<tiles_for(n1, n2, n3), kTileThreads, 0, (cudaStream_t)stream>>>(
+                                  void* out, int channels, int subjects, int n1, int n2,
+                                  int n3, void* staged_tiles, void* stream) {
+  const dim3 grid(tiles_for(n1, n2, n3), subjects);
+  auto kernel = subjects == 1 ? apply_kernel : apply_cohort_kernel;
+  kernel<<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(
       (const float*)fields, (const int32_t*)ib, (const float*)w, (float*)out, channels,
       n1, n2, n3, (int*)staged_tiles);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tricubic_displace_many_f32(const void* fields, const void* disp, void* out,
-                                          int channels, int n1, int n2, int n3,
+                                          int channels, int subjects, int n1, int n2, int n3,
                                           void* staged_tiles, void* stream) {
-  displace_kernel<<<tiles_for(n1, n2, n3), kTileThreads, 0, (cudaStream_t)stream>>>(
+  const dim3 grid(tiles_for(n1, n2, n3), subjects);
+  auto kernel = subjects == 1 ? displace_kernel : displace_cohort_kernel;
+  kernel<<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(
       (const float*)fields, (const float*)disp, (float*)out, channels, n1, n2, n3,
       (int*)staged_tiles);
   return (int)cudaGetLastError();

@@ -17,6 +17,14 @@ solver-wide interpolation protocol::
 * ``"cuda"``: the CUDA kernel; a CPU tensor raises.
 * ``"ref"``: the plain PyTorch version on any device.  Tests and
   ``chip_smoke.py`` use it to hold the kernels against.
+
+A cohort of S subjects (displacements ``(S, 3, N..)``, plans with ``ib``
+``(S, 3, N..)``) puts the subject axis at -4 of the fields,
+``(..., S, N1,N2,N3)``, and takes the same choice: one launch of the
+planned apply or the batched displace over every subject on a card
+(the kernels' subject axis), the plain cohort version on the CPU.  The
+reference sends cohorts to its oracle whatever ``method`` says; the two
+are equal bit for bit (ROADMAP Queue C).
 """
 from __future__ import annotations
 
@@ -65,14 +73,20 @@ def tricubic_displace_many(
     fields: torch.Tensor, disp: torch.Tensor, *, method: str = "auto"
 ) -> torch.Tensor:
     """``fields`` (..., N1,N2,N3) at x + ``disp`` (3, N1,N2,N3), grid units;
-    leading dims are channels sharing one weight construction / one launch."""
+    leading dims are channels sharing one weight construction / one launch.
+    A cohort ``disp`` (S, 3, N..) pairs subject s with axis -4 of
+    ``fields`` (..., S, N..)."""
     if not _use_kernel(method, fields):
         return ref.tricubic_displace_many(fields, disp)
-    shape3 = tuple(fields.shape[-3:])
-    out = tricubic_displace_many_cuda(
-        fields.reshape((-1,) + shape3).contiguous(), disp.contiguous()
-    )
+    out = tricubic_displace_many_cuda(_channels(fields, disp.ndim == 5), disp.contiguous())
     return out.reshape(fields.shape)
+
+
+def _channels(fields: torch.Tensor, cohort: bool) -> torch.Tensor:
+    """``fields`` (..., N1,N2,N3) as the kernels' contiguous (C, N..), or a
+    cohort's (..., S, N..) as (C, S, N..)."""
+    keep = 4 if cohort else 3
+    return fields.reshape((-1,) + tuple(fields.shape[-keep:])).contiguous()
 
 
 class Interp:
@@ -94,8 +108,7 @@ class Interp:
     def apply_plan(self, fields: torch.Tensor, plan: ref.InterpPlan) -> torch.Tensor:
         if not _use_kernel(self.method, fields):
             return ref.interp_apply(fields, plan)
-        shape3 = tuple(fields.shape[-3:])
-        out = tricubic_apply_cuda(fields.reshape((-1,) + shape3).contiguous(), plan)
+        out = tricubic_apply_cuda(_channels(fields, plan.ib.ndim == 5), plan)
         return out.reshape(fields.shape)
 
 

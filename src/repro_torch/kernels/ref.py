@@ -18,6 +18,13 @@ the CPU:
   ``tricubic_displace_vec(fields, disp)`` are the plain versions of the
   single-field displace (``tricubic_displace_cuda``).
 
+A *cohort* of S subjects carries its plans as ``ib (S, 3, N..)`` and
+``w (S, 3, 4, N..)`` (from displacements ``(S, 3, N..)``), and its fields
+with the subject axis at -4, ``(..., S, N..)``: ``interp_apply`` and
+``tricubic_displace_many`` then evaluate each subject's slab with that
+subject's plan, by exactly the single-subject arithmetic, so the kernels'
+subject axis stays bit for bit with them.
+
 The gathers run over chunks of ``CHUNK`` points, so that a 256^3 call keeps
 its (4, 4, 4, chunk) index and value blocks to a few GiB on the card.
 """
@@ -63,6 +70,9 @@ class InterpPlan(NamedTuple):
     ``w``         (3, 4, N1, N2, N3) float32: separable cubic Lagrange
                   weights at the fractional part ``disp - ib``.
     ``halo_need`` () float32: ``ceil(max |disp|)``.
+
+    A cohort plan carries ``ib (S, 3, N..)`` and ``w (S, 3, 4, N..)``, and
+    ``halo_need`` is the max over the cohort.
     """
 
     ib: torch.Tensor
@@ -71,10 +81,12 @@ class InterpPlan(NamedTuple):
 
 
 def make_interp_plan(disp: torch.Tensor) -> InterpPlan:
-    """Precompute the tricubic operators for ``disp`` (3, N1, N2, N3)."""
+    """Precompute the tricubic operators for ``disp`` (3, N1, N2, N3), or a
+    cohort plan for per-subject displacements ``disp`` (S, 3, N1, N2, N3)."""
     d = disp.to(torch.promote_types(disp.dtype, torch.float32))
     ibf = torch.floor(d)
-    w = torch.movedim(lagrange_weights(d - ibf), 0, -4)  # (3, 4, N..)
+    # single (3, N..) -> (3, 4, N..); cohort (S, 3, N..) -> (S, 3, 4, N..)
+    w = torch.movedim(lagrange_weights(d - ibf), 0, -4)
     return InterpPlan(
         ib=ibf.to(torch.int32),
         w=w.contiguous(),
@@ -125,8 +137,18 @@ def interp_apply(fields: torch.Tensor, plan: InterpPlan) -> torch.Tensor:
     """Evaluate ``fields`` (..., N1,N2,N3) at the planned departure points.
 
     Leading dims are channels sharing one gather-index computation;
-    periodic wrap by index arithmetic (valid for any displacement).
+    periodic wrap by index arithmetic (valid for any displacement).  With a
+    cohort plan (``ib`` (S, 3, N..)) axis -4 of ``fields`` is the subject
+    axis: each subject's slab ``fields[..., s, :, :, :]`` is evaluated with
+    its own plan, as a single-subject call would evaluate it.
     """
+    if plan.ib.ndim == 5:
+        return torch.stack(
+            [interp_apply(fields[..., s, :, :, :],
+                          InterpPlan(plan.ib[s], plan.w[s], plan.halo_need))
+             for s in range(plan.ib.shape[0])],
+            dim=-4,
+        )
     shape3 = tuple(plan.ib.shape[-3:])
     lead = fields.shape[:-3]
     ff = fields.reshape(-1, shape3[0] * shape3[1] * shape3[2])
@@ -138,7 +160,8 @@ def interp_apply(fields: torch.Tensor, plan: InterpPlan) -> torch.Tensor:
 
 
 def tricubic_displace_many(fields: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
-    """Batched semi-Lagrangian form: ``fields`` (..., N1,N2,N3) at x + disp."""
+    """Batched semi-Lagrangian form: ``fields`` (..., N1,N2,N3) at x + disp;
+    a cohort ``disp`` (S, 3, N..) pairs subject s with axis -4 of ``fields``."""
     return interp_apply(fields, make_interp_plan(disp))
 
 

@@ -8,6 +8,11 @@ Counterpart of ``repro/kernels/tricubic.py``:
 * ``tricubic_displace_many_cuda(fields, disp)`` replaces
   ``tricubic_displace_pallas_many`` (body ``_kernel_many``): the RK2
   departure solve.  Plain version: ``ref.tricubic_displace_many``.
+
+  Both take a cohort of S subjects in one launch: fields (C, S, N..)
+  against a cohort plan (``ib`` (S, 3, N..), ``w`` (S, 3, 4, N..)) or
+  displacement (S, 3, N..), subject s of the fields paired with subject s
+  of the plan; the TPU kernels are single-subject.
 * ``tricubic_displace_cuda(field, disp)`` replaces
   ``tricubic_displace_pallas`` (body ``_kernel``): one field resampled at
   x + disp, e.g. the template through a returned deformation, or C fields
@@ -28,7 +33,8 @@ how many tiles a launch stages, for a given stencil base and the kernel's
 box (``BOX_ROWS_OF``); ``warp_base`` is the single-field displace's base.
 Inside a ``count_staged()`` block the wrappers have the kernel count the
 tiles it stages, by kernel and grid shape, to hold against the model or to
-show which branch a whole solve took.
+show which branch a whole solve took; a cohort launch counts the tiles of
+each of its subjects.
 """
 from __future__ import annotations
 
@@ -90,15 +96,16 @@ def count_staged():
             counts[key] = {"staged": int(counter.item()), "tiles": tiles}
 
 
-def _path_counter(name: str, shape3: tuple, device):
+def _path_counter(name: str, shape3: tuple, device, subjects: int = 1):
     """The device address of the ``count_staged()`` counter of ``name`` at
-    ``shape3`` (made at its first launch), or None outside the block."""
+    ``shape3`` (made at its first launch), or None outside the block.  A
+    launch over ``subjects`` subjects books that many times the tiles."""
     if _COUNTING is None:
         return None
     key = (name, shape3)
     if key not in _COUNTING:
         _COUNTING[key] = [torch.zeros(1, dtype=torch.int32, device=device), 0]
-    _COUNTING[key][1] += n_tiles(shape3)
+    _COUNTING[key][1] += subjects * n_tiles(shape3)
     return _COUNTING[key][0].data_ptr()
 
 
@@ -115,16 +122,20 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device)
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_fields(fields: torch.Tensor) -> tuple[int, int, int, int]:
-    if fields.ndim != 4:
-        raise ValueError(f"fields must be (C, N1, N2, N3), got shape {tuple(fields.shape)}")
-    c, n1, n2, n3 = fields.shape
-    if min(c, n1, n2, n3) < 1:
+def _check_fields(fields: torch.Tensor, cohort: bool = False) -> tuple[int, ...]:
+    """(C, N1, N2, N3) of single-subject fields, (C, S, N1, N2, N3) of a
+    cohort's."""
+    want = "(C, S, N1, N2, N3)" if cohort else "(C, N1, N2, N3)"
+    if fields.ndim != (5 if cohort else 4):
+        raise ValueError(f"fields must be {want}, got shape {tuple(fields.shape)}")
+    if min(fields.shape) < 1:
         raise ValueError(f"fields shape {tuple(fields.shape)} has an empty axis")
-    if n1 * n2 * n3 >= 2**31:
+    if math.prod(fields.shape[-3:]) >= 2**31:
         raise ValueError("grids of 2^31 points or more are not supported")
+    if cohort and fields.shape[1] > 65535:  # the launch grid's y extent
+        raise ValueError("cohorts of more than 65535 subjects are not supported")
     _check("fields", fields, torch.float32, fields.shape, fields.device)
-    return c, n1, n2, n3
+    return tuple(fields.shape)
 
 
 def n_tiles(shape3) -> int:
@@ -169,7 +180,8 @@ def stencil_base(name: str, disp: torch.Tensor | None = None,
                  plan: InterpPlan | None = None) -> torch.Tensor:
     """The stencil base of one launch of kernel ``name`` (a key of
     ``LAUNCHES``): ``plan.ib`` for the apply, ``floor(disp)`` for the
-    batched displace, ``warp_base(disp)`` for the single-field displace."""
+    batched displace, ``warp_base(disp)`` for the single-field displace.
+    (S, 3, N..) for a cohort launch of the apply or the batched displace."""
     if name == "tricubic_apply":
         return plan.ib
     if name == "tricubic_displace_many":
@@ -182,8 +194,12 @@ def staged_tiles(base: torch.Tensor, box_rows: int = BOX_ROWS) -> int:
     bases ``base`` (3, N1, N2, N3) (``stencil_base``).  A tile stages when
     its stencils span at most ``BOX_WIDTH`` voxels along x3 and at most
     ``box_rows`` (x1, x2) rows (``tile_extents``), the kernel's entry of
-    ``BOX_ROWS_OF``.
+    ``BOX_ROWS_OF``.  A cohort's bases (S, 3, N1, N2, N3) count the staged
+    tiles of every subject: each subject's tile stages as it would in a
+    single-subject launch.
     """
+    if base.ndim == 5:
+        return sum(staged_tiles(b, box_rows) for b in base)
     extent = tile_extents(base)
     return int(((extent[2] <= BOX_WIDTH) & (extent[0] * extent[1] <= box_rows)).sum())
 
@@ -197,18 +213,23 @@ def tricubic_apply_cuda(fields: torch.Tensor, plan: InterpPlan) -> torch.Tensor:
     """Planned apply: ``fields`` (C, N1,N2,N3) f32 at the plan's points.
 
     ``plan.ib`` (3, N..) int32 and ``plan.w`` (3, 4, N..) f32, all on the
-    fields' CUDA device and contiguous.  Returns (C, N1,N2,N3).
+    fields' CUDA device and contiguous.  Returns (C, N1,N2,N3).  With a
+    cohort plan (``ib`` (S, 3, N..), ``w`` (S, 3, 4, N..)) the fields are
+    (C, S, N1,N2,N3), and so is the output.
     """
-    c, n1, n2, n3 = _check_fields(fields)
-    _check("plan.ib", plan.ib, torch.int32, (3, n1, n2, n3), fields.device)
-    _check("plan.w", plan.w, torch.float32, (3, 4, n1, n2, n3), fields.device)
-    counter = _path_counter("tricubic_apply", (n1, n2, n3), fields.device)
+    cohort = plan.ib.ndim == 5
+    shape = _check_fields(fields, cohort)
+    c, s, shape3 = shape[0], shape[1] if cohort else 1, shape[-3:]
+    lead = (s,) if cohort else ()
+    _check("plan.ib", plan.ib, torch.int32, lead + (3,) + shape3, fields.device)
+    _check("plan.w", plan.w, torch.float32, lead + (3, 4) + shape3, fields.device)
+    counter = _path_counter("tricubic_apply", shape3, fields.device, s)
     lib = build.library()
     out = torch.empty_like(fields)
     with torch.cuda.device(fields.device):
         code = lib.tricubic_apply_f32(
             fields.data_ptr(), plan.ib.data_ptr(), plan.w.data_ptr(), out.data_ptr(),
-            c, n1, n2, n3, counter, torch.cuda.current_stream().cuda_stream,
+            c, s, *shape3, counter, torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(code, "tricubic_apply_f32")
     LAUNCHES["tricubic_apply"] += 1
@@ -216,15 +237,19 @@ def tricubic_apply_cuda(fields: torch.Tensor, plan: InterpPlan) -> torch.Tensor:
 
 
 def tricubic_displace_many_cuda(fields: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
-    """Batched displace: ``fields`` (C, N1,N2,N3) f32 at x + ``disp`` (3, N..)."""
-    c, n1, n2, n3 = _check_fields(fields)
-    _check("disp", disp, torch.float32, (3, n1, n2, n3), fields.device)
-    counter = _path_counter("tricubic_displace_many", (n1, n2, n3), fields.device)
+    """Batched displace: ``fields`` (C, N1,N2,N3) f32 at x + ``disp`` (3, N..);
+    a cohort's fields (C, S, N1,N2,N3) at x + its ``disp`` (S, 3, N..)."""
+    cohort = disp.ndim == 5
+    shape = _check_fields(fields, cohort)
+    c, s, shape3 = shape[0], shape[1] if cohort else 1, shape[-3:]
+    _check("disp", disp, torch.float32, ((s,) if cohort else ()) + (3,) + shape3,
+           fields.device)
+    counter = _path_counter("tricubic_displace_many", shape3, fields.device, s)
     lib = build.library()
     out = torch.empty_like(fields)
     with torch.cuda.device(fields.device):
         code = lib.tricubic_displace_many_f32(
-            fields.data_ptr(), disp.data_ptr(), out.data_ptr(), c, n1, n2, n3, counter,
+            fields.data_ptr(), disp.data_ptr(), out.data_ptr(), c, s, *shape3, counter,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(code, "tricubic_displace_many_f32")

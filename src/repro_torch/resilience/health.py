@@ -1,5 +1,6 @@
 """Health guards: status codes for one Gauss-Newton iteration; counterpart
-of ``repro/resilience/health.py`` (single subject).
+of ``repro/resilience/health.py``, for one subject or per subject of a
+cohort.
 
 ``classify`` turns values the Newton step already computed into one status
 code (NaN/Inf, divergence, PCG breakdown, stagnation), and ``freeze``
@@ -29,6 +30,8 @@ STATUS_NAMES = {
     PCG_BREAKDOWN: "pcg_breakdown",
 }
 
+# statuses that mean "this solve went wrong", not "this solve finished"
+FAILED_NAMES = ("nonfinite", "diverged", "pcg_breakdown")
 FAILED_CODES = (NONFINITE, DIVERGED, PCG_BREAKDOWN)
 
 # relative objective increase at the last Armijo trial above which an
@@ -44,34 +47,47 @@ def is_failure(code) -> bool:
     return int(code) in FAILED_CODES
 
 
-def _finite(x) -> torch.Tensor:
-    return torch.all(torch.isfinite(torch.as_tensor(x)))
+def _all_finite(x, axes) -> torch.Tensor:
+    """All-finite over every axis (``axes=None``) or over ``axes``, keeping
+    the others (the cohort's subject axis)."""
+    f = torch.isfinite(torch.as_tensor(x))
+    return torch.all(f) if axes is None else torch.all(f, dim=tuple(axes))
 
 
-def classify(*, v_in, v_out, j_val, j_new, gnorm, pcg_x, pcg_rel, accepted) -> torch.Tensor:
-    """Status of one Newton step, as an int32 scalar tensor.
+def classify(*, v_in, v_out, j_val, j_new, gnorm, pcg_x, pcg_rel, accepted, active=True,
+             axes=None) -> torch.Tensor:
+    """Status of one Newton step, as an int32 tensor.
+
+    With ``axes=None`` every reduction is global and the status a scalar
+    (the single solve); with ``axes=(1, 2, 3, 4)`` the reductions keep the
+    leading subject axis and the status is per subject, (S,) (the cohort,
+    whose inactive subjects, ``active`` False, stay OK).
 
     Precedence (strongest wins): NONFINITE > PCG_BREAKDOWN > DIVERGED >
     STAGNATED > OK.  Convergence and the iteration cap are decided by
-    ``gn.solve``, which maps them onto CONVERGED / MAX_NEWTON.
+    the drivers, which map them onto CONVERGED / MAX_NEWTON.
     """
-    accepted = torch.as_tensor(accepted)
-    state_finite = _finite(j_val) & _finite(gnorm) & _finite(v_in)
-    pcg_finite = _finite(pcg_x) & _finite(pcg_rel)
-    out_finite = _finite(v_out) & _finite(j_new)
+    j_val = torch.as_tensor(j_val)
+    accepted = torch.as_tensor(accepted, device=j_val.device)
+    active = torch.as_tensor(active, dtype=torch.bool, device=j_val.device)
+    state_finite = torch.isfinite(j_val) & torch.isfinite(gnorm) & _all_finite(v_in, axes)
+    pcg_finite = _all_finite(pcg_x, axes) & torch.isfinite(pcg_rel)
+    out_finite = _all_finite(v_out, axes) & torch.isfinite(j_new)
     scale = torch.clamp(torch.abs(j_val), min=1e-30)
     increased = (j_new - j_val) > DIVERGE_RTOL * scale
 
     status = torch.where(
-        ~accepted,
+        active & ~accepted,
         torch.where(increased, DIVERGED, STAGNATED),
         torch.tensor(OK, device=increased.device),
     )
-    status = torch.where(state_finite & ~pcg_finite, PCG_BREAKDOWN, status)
-    status = torch.where(~(state_finite & out_finite), NONFINITE, status)
+    status = torch.where(active & state_finite & ~pcg_finite, PCG_BREAKDOWN, status)
+    status = torch.where(active & ~(state_finite & out_finite), NONFINITE, status)
     return status.to(torch.int32)
 
 
 def freeze(v_new: torch.Tensor, v_old: torch.Tensor, status) -> torch.Tensor:
-    """Revert a NONFINITE iterate to the last good one (no-op otherwise)."""
-    return torch.where(torch.as_tensor(status) == NONFINITE, v_old, v_new)
+    """Revert a NONFINITE iterate to the last good one (no-op otherwise); a
+    per-subject status (S,) reverts those subjects of a cohort."""
+    sick = torch.as_tensor(status) == NONFINITE
+    return torch.where(sick.reshape(sick.shape + (1,) * (v_new.ndim - sick.ndim)), v_old, v_new)

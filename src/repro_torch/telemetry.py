@@ -1,15 +1,18 @@
 """Minimal telemetry for the port: spans, counters, and the ``newton_iter``,
-``level_start``, ``level`` and ``solve`` records of ``repro.telemetry``'s
-schema v1 (same field names, so ``repro.analysis.trace_report`` reads the
-port's traces).  ``annotate`` names a region in ``torch.profiler`` traces.
+``level_start``, ``level``, ``solve``, ``job`` and ``serve_step`` records
+of ``repro.telemetry``'s schema v1 (same field names, so
+``repro.analysis.trace_report`` reads the port's traces).  ``annotate``
+names a region in ``torch.profiler`` traces.
 
 Off by default: with no sink installed a span reads no clock and does not
 synchronise, and ``emit`` builds no record.  A sink is any object with a
-``write(record: dict)`` method; ``ListSink`` keeps records in memory.
+``write(record: dict)`` method; ``ListSink`` keeps records in memory and
+``JsonlSink`` appends them to a file.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import numbers
 import time
 from typing import Any, ClassVar
@@ -37,6 +40,23 @@ class ListSink:
 
     def __exit__(self, exc_type, exc, tb) -> None:
         remove_sink(self)
+
+
+class JsonlSink(ListSink):
+    """Appends every record as one JSON line to ``path`` (the format
+    ``python -m repro.analysis.trace_report`` reads); a context manager
+    installs it, and removes and closes it."""
+
+    def __init__(self, path):
+        super().__init__()
+        self._file = open(path, "a")
+
+    def write(self, record: dict) -> None:
+        self._file.write(json.dumps(record) + "\n")
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        remove_sink(self)
+        self._file.close()
 
 
 def add_sink(sink: Any) -> Any:
@@ -87,7 +107,9 @@ class SpanEvent(Event):
 
 @dataclasses.dataclass
 class NewtonIterEvent(Event):
-    """One Newton iteration of ``gn.solve``."""
+    """One Newton iteration of ``gn.solve`` (scalars) or ``gn.solve_cohort``
+    (per-subject lists in the same fields; ``subjects`` > 0, ``active`` the
+    cohort's live mask)."""
 
     kind: ClassVar[str] = "newton_iter"
     source: str
@@ -132,6 +154,39 @@ class LevelStartEvent(Event):
     shape: list
     betas: list
     warm_start: bool
+
+
+@dataclasses.dataclass
+class JobEvent(Event):
+    """One retired job of ``launch.reg_serve``: its billing (the Hessian
+    matvecs its own masked PCG took) and its retirement reason."""
+
+    kind: ClassVar[str] = "job"
+    job_id: str
+    newton_iters: int
+    hessian_matvecs: int
+    fine_equiv_matvecs: float
+    rel_gnorm: float
+    converged: bool
+    slot: int = -1
+    queue_wait_steps: int = 0  # cohort iterations spent queued before a slot
+    admitted_step: int = 0  # server iterations when the job entered its slot
+    retired_step: int = 0
+    block: list | None = None
+    status: str = ""
+    attempts: int = 1
+
+
+@dataclasses.dataclass
+class ServeStepEvent(Event):
+    """One cohort iteration of a ``CohortServer``: the occupancy meter."""
+
+    kind: ClassVar[str] = "serve_step"
+    iteration: int
+    slots: int
+    occupancy: int  # live subjects this step
+    queue_len: int
+    refills: int  # slot fills after the initial ones, so far
 
 
 @dataclasses.dataclass

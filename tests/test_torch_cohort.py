@@ -1,0 +1,514 @@
+"""Port parity of the cohort path: ``gn.solve_cohort`` and the cohort
+server (``launch/reg_serve.py``) against the JAX package, on the CPU.
+
+The inputs are the reference test's (``tests/test_cohort.py``): four
+``synthetic_problem(12, n_t=2, amplitude=a)`` pairs and its ``CFG``; the
+same numpy arrays go to both packages.  The bar is the reference's: per
+subject the same Newton and matvec counts, velocities within 5e-4 of the
+largest.  Held:
+
+* the cohort plans and the plain cohort interpolation against
+  ``repro.kernels.ref``, and each subject bit for bit against the
+  single-subject plain version (the contract the kernels' subject axis
+  keeps on a card);
+* the per-subject reductions (``inner_per``, ``reg_energy``);
+* the port's cohort step against the reference's, iteration by iteration
+  from the reference's own iterates;
+* whole cohort solves and the server against the port's own independent
+  solves, and against the reference's, whose counts part from the port's
+  at one Newton iteration of two subjects (ROADMAP Queue C 7: the packages
+  round differently, and the PCG residual test sits near its threshold
+  there; the parting is pinned by the residuals and thresholds of both
+  packages, and the parted subjects' velocities by a bound of their own);
+* masked retirement, never-active subjects, one step signature across a
+  continuation schedule and across server refills, and the unported
+  serving modes.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro.core import gauss_newton as jgn  # noqa: E402
+from repro.core import objective as jobj  # noqa: E402
+from repro.core.grid import make_grid as jmake_grid  # noqa: E402
+from repro.core.spectral import SpectralOps as JSpectralOps  # noqa: E402
+from repro.data.synthetic import synthetic_problem  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.launch import reg_serve as jserve  # noqa: E402
+from repro.telemetry.events import validate_record  # noqa: E402
+from repro_torch import telemetry  # noqa: E402
+from repro_torch.core import gauss_newton as gn  # noqa: E402
+from repro_torch.core import objective as obj  # noqa: E402
+from repro_torch.core.grid import make_grid  # noqa: E402
+from repro_torch.core.spectral import SpectralOps  # noqa: E402
+from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.launch import reg_serve  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N = 12
+AMPS = (0.2, 0.6, 1.0, 1.4)  # tests/test_cohort.py: spread convergence speeds
+CFG_KW = dict(beta=1e-2, n_t=2, max_newton=8, gtol=1e-2, max_cg=20)
+JCFG = jgn.GNConfig(**CFG_KW)
+CFG = gn.GNConfig(**CFG_KW)
+V_RTOL = 5e-4  # tests/test_cohort.py
+TOL = dict(atol=1e-4, rtol=1e-4)  # tests/test_interp_plan.py
+# ROADMAP Queue C 7: where the port's solves of these inputs part from the
+# reference's, subject -> (Newton iteration, reference cg_iters, port
+# cg_iters); every earlier iteration agrees
+PARTED = {1: (3, 4, 3), 2: (3, 2, 3)}
+# ROADMAP Queue C 7: after the parting, a parted subject's final velocity
+# lies this close to the reference's (measured: 1.4e-4 and 6.4e-4)
+PARTED_V_RTOL = 2e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """12^3 fields: intra-op threads only contend with the other workers,
+    and one thread fixes the CPU reductions' order."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+
+
+@pytest.fixture(scope="module")
+def images():
+    probs = [synthetic_problem(N, n_t=2, amplitude=a) for a in AMPS]
+    rho_R = np.stack([np.asarray(p[0]) for p in probs])
+    rho_T = np.stack([np.asarray(p[1]) for p in probs])
+    return rho_R, rho_T
+
+
+@pytest.fixture(scope="module")
+def solved(images):
+    """Both packages' cohort solves and independent solves of the images."""
+    rho_R, rho_T = images
+    jgrid = jmake_grid(N)
+    grid = make_grid(N)
+    return {
+        "jax_cohort": jgn.solve_cohort(jnp.asarray(rho_R), jnp.asarray(rho_T), jgrid, JCFG),
+        "jax_singles": [jgn.solve(jnp.asarray(rho_R[s]), jnp.asarray(rho_T[s]), jgrid, JCFG)
+                        for s in range(len(AMPS))],
+        "cohort": gn.solve_cohort(_t(rho_R), _t(rho_T), grid, CFG, device="cpu"),
+        "singles": [gn.solve(_t(rho_R[s]), _t(rho_T[s]), grid, CFG, device="cpu")
+                    for s in range(len(AMPS))],
+    }
+
+
+def _subject_cg(cohort, s):
+    """Subject s's cg_iters in each cohort iteration it was active."""
+    return [h["cg_iters"][s] for h in cohort["history"] if h["active"][s]]
+
+
+# --------------------------------------------------------------------------- #
+# cohort plans and the plain cohort interpolation
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("shape", [(12, 12, 12), (12, 20, 9)])
+def test_cohort_plan_matches_jax(rng, shape):
+    d = rng.uniform(-7.0, 7.0, (3, 3) + shape).astype(np.float32)
+    want = jref.make_interp_plan(jnp.asarray(d))
+    got = ref.make_interp_plan(_t(d))
+    np.testing.assert_array_equal(got.ib.numpy(), np.asarray(want.ib))
+    assert got.ib.shape == (3, 3) + shape and got.w.shape == (3, 3, 4) + shape
+    np.testing.assert_allclose(got.w.numpy(), np.asarray(want.w), atol=1e-6, rtol=0)
+    # one budget for the cohort: the max over its subjects
+    assert float(got.halo_need) == float(want.halo_need) == float(np.ceil(np.abs(d).max()))
+
+
+@pytest.mark.parametrize("lead", [(), (1,), (2,), (3,)])
+def test_cohort_interp_matches_jax_and_each_subject(rng, lead):
+    """Fields (..., S, N..) against a cohort plan and a cohort displacement:
+    close to the reference, and each subject bit for bit the single-subject
+    plain version on its own plan."""
+    shape, subjects = (12, 20, 9), 3
+    f = rng.standard_normal(lead + (subjects,) + shape).astype(np.float32)
+    d = rng.uniform(-7.0, 7.0, (subjects, 3) + shape).astype(np.float32)
+    plan = ref.make_interp_plan(_t(d))
+    got = ref.interp_apply(_t(f), plan)
+    many = ref.tricubic_displace_many(_t(f), _t(d))
+    jplan = jref.make_interp_plan(jnp.asarray(d))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref.interp_apply(jnp.asarray(f), jplan)),
+                               **TOL)
+    np.testing.assert_allclose(
+        many.numpy(), np.asarray(jref.tricubic_displace_many(jnp.asarray(f), jnp.asarray(d))),
+        **TOL)
+    assert got.shape == f.shape
+    for s in range(subjects):
+        one = ref.interp_apply(_t(f[..., s, :, :, :]),
+                               ref.make_interp_plan(_t(d[s])))
+        np.testing.assert_array_equal(got[..., s, :, :, :].numpy(), one.numpy())
+        np.testing.assert_array_equal(many[..., s, :, :, :].numpy(), one.numpy())
+
+
+def test_cohort_deformation_matches_jax_and_each_subject(rng):
+    """The cohort deformation map: each subject's is its single-subject one
+    bit for bit, and all are close to the reference's cohort map."""
+    from repro.core import planner as jplanner
+    from repro.core import semilag as jsemilag
+    from repro_torch.core import planner, semilag
+
+    shape = (12, 12, 12)
+    v = rng.uniform(-0.5, 0.5, (3, 3) + shape).astype(np.float32)
+    grid, jgrid = make_grid(shape), jmake_grid(shape)
+    ops = SpectralOps(grid, device="cpu")
+    got = semilag.deformation_displacement(
+        _t(v), planner.make_plan(_t(v), grid, ops, 2, False, adjoint=False))
+    jplan = jplanner.make_plan(jnp.asarray(v), jgrid, JSpectralOps(jgrid), 2, False,
+                               adjoint=False)
+    want = jsemilag.deformation_displacement(jnp.asarray(v), jplan)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for s in range(3):
+        one = semilag.deformation_displacement(
+            _t(v[s]), planner.make_plan(_t(v[s]), grid, ops, 2, False, adjoint=False))
+        np.testing.assert_array_equal(got[s].numpy(), one.numpy())
+
+
+# --------------------------------------------------------------------------- #
+# per-subject reductions
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("what", ["inner_per", "norm_sq_per", "reg_energy", "batch_reg_energy"])
+def test_per_subject_reductions_match_jax(rng, what):
+    shape = (12, 20, 9)
+    a = rng.standard_normal((4, 3) + shape).astype(np.float32)
+    b = rng.standard_normal((4, 3) + shape).astype(np.float32)
+    grid, jgrid = make_grid(shape), jmake_grid(shape)
+    if what == "inner_per":
+        got, want = grid.inner_per(_t(a), _t(b)), jgrid.inner_per(jnp.asarray(a), jnp.asarray(b))
+        single = [float(grid.inner(_t(a[s]), _t(b[s]))) for s in range(4)]
+    elif what == "norm_sq_per":
+        got, want = grid.norm_sq_per(_t(a)), jgrid.norm_sq_per(jnp.asarray(a))
+        single = [float(grid.norm_sq(_t(a[s]))) for s in range(4)]
+    else:
+        ops, jops = SpectralOps(grid, device="cpu"), JSpectralOps(jgrid)
+        if what == "reg_energy":
+            got = ops.reg_energy(_t(a), 1e-2)
+        else:
+            with ops.batch() as sb:
+                handle = sb.reg_energy(_t(a), 1e-2)
+            got = handle.get()
+        want = jops.reg_energy(jnp.asarray(a), 1e-2)
+        single = [float(ops.reg_energy(_t(a[s]), 1e-2)) for s in range(4)]
+    assert got.shape == (4,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got.numpy(), single, rtol=1e-5, atol=0)
+
+
+# --------------------------------------------------------------------------- #
+# the cohort solve against the reference
+# --------------------------------------------------------------------------- #
+def test_cohort_step_matches_jax_step_by_step(images):
+    """Each cohort iteration of the reference's solve, fed to both packages'
+    cohort steps from the reference's iterate, forcing references and
+    active mask: the same per-subject cg_iters, Armijo halvings, statuses
+    and steps, gradient norms within 1e-4 of the first ones (the scale of
+    the convergence test), and the next iterates within V_RTOL."""
+    rho_R, rho_T = images
+    jstep = jgn.make_cohort_step(jmake_grid(N), JCFG)
+    step = gn.make_cohort_step(make_grid(N), CFG, device="cpu")
+    S = len(AMPS)
+    v = jnp.zeros((S, 3) + (N,) * 3, jnp.float32)
+    g_forcing = jnp.full((S,), 1e-30, jnp.float32)
+    active = np.ones(S, bool)
+    g0, iters = None, 0
+    while active.any() and iters < CFG.max_newton:
+        jv, jlog = jstep(v, g_forcing, jnp.asarray(active), jnp.float32(CFG.beta),
+                         jnp.asarray(rho_R), jnp.asarray(rho_T))
+        tv, tlog = step(_t(v), _t(g_forcing), torch.as_tensor(active), CFG.beta, _t(rho_R),
+                        _t(rho_T))
+        np.testing.assert_array_equal(tlog.cg_iters.numpy(), np.asarray(jlog.cg_iters))
+        assert tlog.ls_iters == int(jlog.ls_iters)
+        np.testing.assert_array_equal(tlog.status.numpy(), np.asarray(jlog.status))
+        np.testing.assert_array_equal(tlog.step_len.numpy() == 0, np.asarray(jlog.step_len) == 0)
+        if g0 is None:
+            g0, g_forcing = np.asarray(jlog.gnorm), jlog.gnorm
+        np.testing.assert_allclose(tlog.gnorm.numpy() / g0, np.asarray(jlog.gnorm) / g0,
+                                   atol=1e-4, rtol=0)
+        for s in range(S):
+            assert _rel(tv[s].numpy(), jv[s]) < V_RTOL, (iters, s)
+        rel = np.asarray(jlog.gnorm) / g0
+        active = active & ~((rel <= CFG.gtol) | (np.asarray(jlog.step_len) == 0.0))
+        v, iters = jv, iters + 1
+    assert not active.any()
+
+
+def test_solve_cohort_against_jax(solved):
+    """Whole solves: the same Newton counts, and the same cg_iters in every
+    iteration up to the parting filed in ROADMAP Queue C 7; the subjects
+    that do not part bill the reference's matvecs and land within V_RTOL of
+    its velocity.  The reference's cohort equals its independent solves,
+    and the parting is the one of the two packages' independent solves."""
+    jc, c = solved["jax_cohort"], solved["cohort"]
+    assert c["newton_iters"] == jc["newton_iters"]
+    assert c["status"] == jc["status"]
+    parted = {}
+    for s in range(len(AMPS)):
+        mine, theirs = _subject_cg(c, s), _subject_cg(jc, s)
+        assert len(mine) == len(theirs)
+        first = next((k for k, (a, b) in enumerate(zip(theirs, mine)) if a != b), None)
+        rel = _rel(c["v"][s].numpy(), jc["v"][s])
+        if first is None:
+            assert c["hessian_matvecs"][s] == jc["hessian_matvecs"][s]
+            assert rel < V_RTOL, s
+        else:
+            parted[s] = (first, theirs[first], mine[first])
+            print(f"subject {s}: final v {rel:.3g} of the reference's largest")
+            assert rel < PARTED_V_RTOL, s
+        # the reference's own claim, and the same parting in single solves
+        assert jc["hessian_matvecs"][s] == solved["jax_singles"][s]["hessian_matvecs"]
+        assert ([h["cg_iters"] for h in solved["jax_singles"][s]["history"]] == theirs)
+        assert ([h["cg_iters"] for h in solved["singles"][s]["history"]] == mine)
+    assert parted == PARTED
+
+
+def _pcg_residuals(package: str, s: int, images, v, g_forcing: float, iters):
+    """Subject s's Newton system at velocity ``v`` in one package: the
+    Eisenstat-Walker threshold eta of the solve (first gradient norm
+    ``g_forcing``) and the PCG relative residual after each of ``iters``
+    iterations, with the solver's own matvec and preconditioner."""
+    rho_R, rho_T = images[0][s], images[1][s]
+    if package == "jax":
+        jgrid = jmake_grid(N)
+        jops = JSpectralOps(jgrid)
+        prob = jobj.Problem(grid=jgrid, rho_R=jnp.asarray(rho_R), rho_T=jnp.asarray(rho_T),
+                            beta=JCFG.beta, n_t=JCFG.n_t, incompressible=False)
+        interp = jgn._interp_fn(JCFG)
+        state = jobj.newton_state(jnp.asarray(np.asarray(v)), prob, jops, interp)
+        gnorm = float(jnp.sqrt(jgrid.norm_sq(state.g)))
+        res = [float(jgn.pcg(lambda p: jobj.gn_hessian_matvec(p, state, prob, jops, interp),
+                             -state.g, lambda r: jops.precond_project(r, prob.beta, False),
+                             jgrid.inner, jnp.float32(0.0), m).rel_res) for m in iters]
+    else:
+        grid = make_grid(N)
+        ops = SpectralOps(grid, device="cpu")
+        prob = obj.Problem(grid=grid, rho_R=_t(rho_R), rho_T=_t(rho_T), beta=CFG.beta,
+                           n_t=CFG.n_t, incompressible=False)
+        interp = gn._interp_fn(CFG)
+        state = obj.newton_state(_t(v), prob, ops, interp)
+        gnorm = float(torch.sqrt(grid.norm_sq(state.g)))
+        res = [float(gn.pcg(lambda p: obj.gn_hessian_matvec(p, state, prob, ops, interp),
+                            -state.g, lambda r: ops.precond_project(r, prob.beta, False),
+                            grid.inner, torch.tensor(0.0), m).rel_res) for m in iters]
+    return min(CFG.eta_max, float(np.sqrt(gnorm / g_forcing))), res
+
+
+@pytest.mark.parametrize("s", sorted(PARTED))
+def test_parting_sits_at_the_forcing_threshold(images, solved, s):
+    """ROADMAP Queue C 7 in numbers.  At the parting Newton iteration, each
+    package's PCG residual after the smaller of the two counts lies on the
+    side of its threshold eta that its count says, and the package that
+    iterates on lies within 1% above its eta.  From one and the same
+    iterate (the reference's) the packages' residuals agree within 0.5%
+    and give one count: the parting comes from the iterates, which differ
+    by roundoff."""
+    it, want, got = PARTED[s]
+    m = min(want, got)
+    rho_R, rho_T = images
+    jv = jgn.solve(jnp.asarray(rho_R[s]), jnp.asarray(rho_T[s]), jmake_grid(N),
+                   dataclasses.replace(JCFG, max_newton=it))["v"]
+    tv = gn.solve(_t(rho_R[s]), _t(rho_T[s]), make_grid(N),
+                  dataclasses.replace(CFG, max_newton=it), device="cpu")["v"]
+    jg0 = solved["jax_singles"][s]["history"][0]["gnorm"]
+    tg0 = solved["singles"][s]["history"][0]["gnorm"]
+    own = {"jax": _pcg_residuals("jax", s, images, jv, jg0, [m]),
+           "torch": _pcg_residuals("torch", s, images, tv.numpy(), tg0, [m])}
+    shared = {"jax": own["jax"], "torch": _pcg_residuals("torch", s, images, jv, tg0, [m])}
+    print(f"subject {s}, Newton iteration {it}, residual after {m} PCG iterations "
+          f"(eta): own iterates {own}, the reference's iterate {shared}, "
+          f"iterates {_rel(tv.numpy(), jv):.3g} apart")
+    for package, count in (("jax", want), ("torch", got)):
+        eta, (res,) = own[package]
+        assert (res > eta) == (count > m), package
+        if count > m:
+            assert res < 1.01 * eta, package
+    (jeta, (jres,)), (teta, (tres,)) = shared["jax"], shared["torch"]
+    assert abs(tres - jres) < 5e-3 * jres
+    assert (tres > teta) == (jres > jeta)
+
+
+def test_solve_cohort_matches_its_independent_solves(solved):
+    c = solved["cohort"]
+    assert c["compiled_executables"] == 1
+    assert c["status"] == ["converged"] * len(AMPS)
+    for s, single in enumerate(solved["singles"]):
+        assert c["newton_iters"][s] == single["newton_iters"], s
+        assert c["hessian_matvecs"][s] == single["hessian_matvecs"], s
+        assert _subject_cg(c, s) == [h["cg_iters"] for h in single["history"]], s
+        assert _rel(c["v"][s].numpy(), single["v"].numpy()) < V_RTOL, s
+
+
+def test_masked_termination_retires_early_convergers(solved):
+    c = solved["cohort"]
+    iters = c["newton_iters"]
+    assert min(iters) < max(iters), iters
+    for s in range(len(iters)):
+        post = [rec for rec in c["history"] if rec["iter"] >= iters[s]]
+        assert all(rec["cg_iters"][s] == 0 for rec in post), s
+        assert all(not rec["active"][s] for rec in post), s
+        assert all(rec["step"][s] == 0.0 for rec in post), s
+
+
+def test_never_active_subjects_stay_zero_and_unbilled(images, solved):
+    rho_R, rho_T = images
+    active = torch.tensor([True, False, True, False])
+    res = gn.solve_cohort(_t(rho_R), _t(rho_T), make_grid(N), CFG, active=active, device="cpu")
+    assert res["active"] == [True, False, True, False]
+    for s in (1, 3):
+        assert float(res["v"][s].abs().max()) == 0.0
+        assert res["newton_iters"][s] == 0 and res["hessian_matvecs"][s] == 0
+        assert all(rec["cg_iters"][s] == 0 for rec in res["history"])
+    for s in (0, 2):
+        single = solved["singles"][s]
+        assert res["newton_iters"][s] == single["newton_iters"], s
+        assert res["hessian_matvecs"][s] == single["hessian_matvecs"], s
+        assert _rel(res["v"][s].numpy(), single["v"].numpy()) < V_RTOL, s
+
+
+def test_one_step_signature_across_beta_continuation(images):
+    """A continuation schedule calls one step with one argument signature,
+    and on the CPU nothing builds the kernel library."""
+    rho_R, rho_T = images
+    cfg = gn.GNConfig(beta=1e-3, beta_continuation=(1e-2,), n_t=2, max_newton=3, gtol=1e-2,
+                      max_cg=10)
+    res = gn.solve_cohort(_t(rho_R), _t(rho_T), make_grid(N), cfg, device="cpu")
+    assert {h["beta"] for h in res["history"]} == {1e-2, 1e-3}
+    assert res["compiled_executables"] == 1
+    assert build._LIB is None
+
+
+# --------------------------------------------------------------------------- #
+# the cohort server
+# --------------------------------------------------------------------------- #
+def _jobs(rho_R, rho_T, tensor):
+    conv = _t if tensor else jnp.asarray
+    return [(reg_serve if tensor else jserve).RegJob(job_id=s, rho_R=conv(rho_R[s]),
+                                                    rho_T=conv(rho_T[s]))
+            for s in range(len(AMPS))]
+
+
+def test_server_refills_bill_each_job_its_independent_solve(images, solved):
+    rho_R, rho_T = images
+    server = reg_serve.CohortServer(make_grid(N), CFG, slots=2, device="cpu")
+    server.admit(*_jobs(rho_R, rho_T, tensor=True))
+    with telemetry.ListSink() as sink:
+        results = {r.job_id: r for r in server.run()}
+    assert len(results) == len(AMPS)
+    assert server.compiled_executables() == 1
+    assert server.refills >= 2
+    steps = [r for r in sink.records if r["kind"] == "serve_step"]
+    assert len(steps) == server.iterations and max(r["occupancy"] for r in steps) == 2
+    for s, single in enumerate(solved["singles"]):
+        r = results[s]
+        assert r.converged and r.status == "converged", s
+        assert r.newton_iters == single["newton_iters"], s
+        assert r.hessian_matvecs == single["hessian_matvecs"] == r.fine_equiv_matvecs, s
+        assert _rel(r.v.numpy(), single["v"].numpy()) < V_RTOL, s
+    for rec in sink.records:
+        assert validate_record(rec) == [], rec
+
+
+def test_server_against_jax_server(images, solved):
+    """The reference's server at 2 slots bills each job its own independent
+    solve too; the two servers' billing parts where the solves part."""
+    rho_R, rho_T = images
+    jsrv = jserve.CohortServer(jmake_grid(N), JCFG, slots=2)
+    jsrv.admit(*_jobs(rho_R, rho_T, tensor=False))
+    theirs = {r.job_id: r for r in jsrv.run()}
+    srv = reg_serve.CohortServer(make_grid(N), CFG, slots=2, device="cpu")
+    srv.admit(*_jobs(rho_R, rho_T, tensor=True))
+    mine = {r.job_id: r for r in srv.run()}
+    assert (srv.iterations, srv.refills) == (jsrv.iterations, jsrv.refills)
+    for s in range(len(AMPS)):
+        assert mine[s].newton_iters == theirs[s].newton_iters, s
+        assert mine[s].status == theirs[s].status, s
+        assert theirs[s].hessian_matvecs == solved["jax_singles"][s]["hessian_matvecs"], s
+        if s in PARTED:
+            _, want, got = PARTED[s]
+            assert mine[s].hessian_matvecs - theirs[s].hessian_matvecs == got - want, s
+            assert _rel(mine[s].v.numpy(), theirs[s].v) < PARTED_V_RTOL, s
+        else:
+            assert mine[s].hessian_matvecs == theirs[s].hessian_matvecs, s
+            assert _rel(mine[s].v.numpy(), theirs[s].v) < V_RTOL, s
+
+
+def test_retirement_status_splits_converged_from_max_newton(images):
+    rho_R, rho_T = images
+    capped = gn.GNConfig(beta=1e-2, n_t=2, max_newton=1, gtol=1e-6, max_cg=20)
+    server = reg_serve.CohortServer(make_grid(N), capped, slots=2, device="cpu")
+    server.admit(reg_serve.RegJob(job_id="hard", rho_R=_t(rho_R[3]), rho_T=_t(rho_T[3])))
+    with telemetry.ListSink() as sink:
+        res = server.run()[0]
+    assert not res.converged and res.status == "max_newton" and res.attempts == 1
+    assert [r["status"] for r in sink.records if r["kind"] == "job"] == ["max_newton"]
+
+    server2 = reg_serve.CohortServer(make_grid(N), CFG, slots=2, device="cpu")
+    server2.admit(reg_serve.RegJob(job_id="easy", rho_R=_t(rho_R[0]), rho_T=_t(rho_T[0])))
+    res2 = server2.run()[0]
+    assert res2.converged and res2.status == "converged"
+
+
+def test_server_rejects_continuation():
+    cfg = gn.GNConfig(beta_continuation=(1e-1,), n_t=2)
+    with pytest.raises(ValueError):
+        reg_serve.CohortServer(make_grid(N), cfg, slots=2, device="cpu")
+
+
+def test_serve_jobs_one_bucket(images, solved):
+    rho_R, rho_T = images
+    out = reg_serve.serve_jobs(_jobs(rho_R, rho_T, tensor=True), CFG, slots=2, device="cpu")
+    assert out["compiled_executables"] == 1
+    (stats,) = out["buckets"].values()
+    assert stats["jobs"] == len(AMPS) and stats["refills"] >= 2
+    billed = {r.job_id: r.hessian_matvecs for r in out["results"]}
+    assert billed == {s: o["hessian_matvecs"] for s, o in enumerate(solved["singles"])}
+
+
+@pytest.mark.parametrize("kw", [{"retry": object()}, {"checkpoint": "ckpt"}, {"resume": True},
+                                {"faults": [lambda srv: None]}])
+def test_serve_jobs_unported_modes_raise(images, kw):
+    rho_R, rho_T = images
+    with pytest.raises(NotImplementedError, match="item 10"):
+        reg_serve.serve_jobs(_jobs(rho_R, rho_T, tensor=True), CFG, slots=2, device="cpu",
+                             **kw)
+
+
+@pytest.mark.parametrize("call,item", [("snapshot", "item 10"), ("restore", "item 10"),
+                                       ("emit_step_collectives", "item 14")])
+def test_server_unported_methods_raise(call, item):
+    server = reg_serve.CohortServer(make_grid(8), CFG, slots=2, device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        getattr(server, call)()
+
+
+def test_reg_serve_cli_writes_a_trace_the_reference_validates(tmp_path):
+    trace = tmp_path / "serve.jsonl"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.reg_serve", "--device", "cpu", "--jobs", "3",
+         "--slots", "2", "--size", "8", "--n-t", "2", "--max-newton", "2", "--trace",
+         str(trace)],
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "served 3 jobs" in proc.stdout and "1 step signature" in proc.stdout
+    check = subprocess.run(
+        [sys.executable, "-m", "repro.analysis.trace_report", str(trace), "--validate"],
+        env=dict(env, JAX_PLATFORMS="cpu"), capture_output=True, text=True, timeout=300,
+    )
+    assert check.returncode == 0, check.stdout + check.stderr

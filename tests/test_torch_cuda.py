@@ -7,14 +7,16 @@ Run on a machine with a CUDA card:
 Each kernel is held against its plain PyTorch version on the card, at
 small shapes (cubic, non-cubic with N3 % 8 != 0, displacements beyond any
 halo), and the default solve and a coarse-to-fine solve are shown to
-launch the tricubic kernels.  On smooth displacements, whose tiles the
-three tricubic kernels stage in shared memory, they agree with their plain
-versions bit for bit and stage as many tiles as the plain model
-``tricubic.staged_tiles`` says; random displacements take the unstaged
-branch.  Whether a
-card is present is decided inside the ``cuda`` fixture, so every worker
-collects the same tests; without a card they skip.  Imports neither JAX
-nor the JAX package.
+launch the tricubic kernels.  The planned apply and the batched displace
+also take a cohort of subjects in one launch (the subject axis), equal bit
+for bit to one launch per subject and to the plain cohort versions, and a
+cohort solve through them equals the plain one.  On smooth displacements,
+whose tiles the three tricubic kernels stage in shared memory, they agree
+with their plain versions bit for bit and stage as many tiles as the plain
+model ``tricubic.staged_tiles`` says; random displacements take the
+unstaged branch.  Whether a card is present is decided inside the ``cuda``
+fixture, so every worker collects the same tests; without a card they
+skip.  Imports neither JAX nor the JAX package.
 """
 import dataclasses
 import sys
@@ -141,6 +143,114 @@ def test_count_staged_counts_every_launch(cuda):
     }
 
 
+def _cohort_inputs(cuda, shape, c, subjects, field, seed=0):
+    """Fields (C, S, N..) and per-subject displacements (S, 3, N..): smooth
+    ones of 2 to 16 voxels (the subjects stage all, part or few of their
+    tiles) or random ones of up to 9 voxels."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    f = torch.randn((c, subjects) + shape, generator=gen, device=cuda)
+    if field == "smooth":
+        d = torch.stack([smooth_disp(shape, SMOOTH_MAX_DISP[s % 3], gen, cuda)
+                         for s in range(subjects)])
+    else:
+        d = (torch.rand((subjects, 3) + shape, generator=gen, device=cuda) * 2 - 1) * 9.0
+    return f, d
+
+
+@pytest.mark.parametrize("field", ["smooth", "random"])
+@pytest.mark.parametrize("shape", SMOOTH_SHAPES)
+@pytest.mark.parametrize("name,c", [("tricubic_apply", 1), ("tricubic_apply", 2),
+                                    ("tricubic_apply", 3), ("tricubic_displace_many", 3)])
+def test_cohort_kernels_bit_exact_against_plain_and_single_launches(cuda, name, c, shape,
+                                                                     field):
+    """K1 and K2 over 4 subjects in one launch equal the plain cohort
+    version and 4 single-subject launches on the contiguous slabs bit for
+    bit, and stage each subject's tiles as the model does."""
+    subjects = 4
+    f, d = _cohort_inputs(cuda, shape, c, subjects, field)
+    plan = ref.make_interp_plan(d)
+    with tricubic.count_staged() as counts:
+        if name == "tricubic_apply":
+            got = tricubic.tricubic_apply_cuda(f, plan)
+        else:
+            got = tricubic.tricubic_displace_many_cuda(f, d)
+    assert got.shape == f.shape
+    want = (ref.interp_apply(f, plan) if name == "tricubic_apply"
+            else ref.tricubic_displace_many(f, d))
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    for s in range(subjects):
+        slab = f[:, s].contiguous()
+        if name == "tricubic_apply":
+            one = tricubic.tricubic_apply_cuda(
+                slab, ref.InterpPlan(plan.ib[s], plan.w[s], plan.halo_need))
+        else:
+            one = tricubic.tricubic_displace_many_cuda(slab, d[s].contiguous())
+        torch.testing.assert_close(got[:, s], one, atol=0, rtol=0)
+    base = tricubic.stencil_base(name, d, plan)
+    assert counts[(name, shape)] == {"staged": tricubic.staged_tiles(base),
+                                     "tiles": subjects * tricubic.n_tiles(shape)}
+
+
+@pytest.mark.parametrize("shape", SMOOTH_SHAPES)
+def test_cohort_of_one_subject_is_the_single_launch(cuda, shape):
+    """S = 1: the cohort launch gives the single-subject launch's output bit
+    for bit, and books the same tiles."""
+    f, d = _cohort_inputs(cuda, shape, 3, 1, "smooth")
+    plan = ref.make_interp_plan(d)
+    single = ref.InterpPlan(plan.ib[0], plan.w[0], plan.halo_need)
+    with tricubic.count_staged() as cohort_counts:
+        k1 = tricubic.tricubic_apply_cuda(f[:2].contiguous(), plan)
+        k2 = tricubic.tricubic_displace_many_cuda(f, d)
+    with tricubic.count_staged() as single_counts:
+        one1 = tricubic.tricubic_apply_cuda(f[:2, 0].contiguous(), single)
+        one2 = tricubic.tricubic_displace_many_cuda(f[:, 0].contiguous(), d[0].contiguous())
+    torch.testing.assert_close(k1[:, 0], one1, atol=0, rtol=0)
+    torch.testing.assert_close(k2[:, 0], one2, atol=0, rtol=0)
+    assert cohort_counts == single_counts
+
+
+def test_cohort_dispatch_launches_once_per_call(cuda):
+    """A cohort plan or displacement goes to one launch of K1 or K2 under
+    "auto", to the plain cohort version under "ref", with equal results."""
+    f, d = _cohort_inputs(cuda, (12, 20, 9), 2, 3, "smooth")
+    interp = ops.make_interp()
+    plan = interp.make_plan(d)
+    tricubic.reset_launches()
+    got = interp.apply_plan(f, plan), interp(f, d), interp(f[0], d)
+    assert tricubic.LAUNCHES == {
+        "tricubic_apply": 1, "tricubic_displace_many": 2, "tricubic_displace": 0
+    }
+    tricubic.reset_launches()
+    plain = ops.make_interp("ref")
+    want = plain.apply_plan(f, plan), plain(f, d), plain(f[0], d)
+    assert all(n == 0 for n in tricubic.LAUNCHES.values())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def test_cohort_solve_through_kernels_equals_plain(cuda):
+    """A 16^3 cohort solve under "auto" (the kernels) equals the one under
+    "ref" (no launch): the same per-subject counts and velocities."""
+    from repro_torch.core.grid import make_grid
+
+    probs = [synthetic.synthetic_problem(16, n_t=2, amplitude=a, device=cuda)
+             for a in (0.2, 0.6, 1.0, 1.4)]
+    rho_R = torch.stack([p[0] for p in probs])
+    rho_T = torch.stack([p[1] for p in probs])
+    outs, launches = {}, {}
+    for method in ("auto", "ref"):
+        cfg = gn.GNConfig(n_t=2, max_newton=8, max_cg=20, interp_method=method)
+        tricubic.reset_launches()
+        outs[method] = gn.solve_cohort(rho_R, rho_T, make_grid(16), cfg, device=cuda)
+        launches[method] = dict(tricubic.LAUNCHES)
+    assert launches["auto"]["tricubic_apply"] > 0
+    assert launches["auto"]["tricubic_displace_many"] > 0
+    assert all(n == 0 for n in launches["ref"].values())
+    for key in ("newton_iters", "hessian_matvecs", "status"):
+        assert outs["auto"][key] == outs["ref"][key], key
+    assert float((outs["auto"]["v"] - outs["ref"]["v"]).abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_single_field_displace_kernel_matches_plain(cuda, shape):
     f, d = _inputs(cuda, shape, 1)
@@ -229,6 +339,11 @@ def test_kernels_exact_at_grid_points(cuda):
 def test_wrappers_reject_bad_inputs(cuda):
     f, d = _inputs(cuda, (8, 8, 8), 2)
     plan = ref.make_interp_plan(d)
+    cohort = ref.make_interp_plan(torch.stack([d, d]))
+    with pytest.raises(ValueError):  # a cohort plan needs (C, S, N..) fields
+        tricubic.tricubic_apply_cuda(f, cohort)
+    with pytest.raises(ValueError):  # of its S subjects
+        tricubic.tricubic_apply_cuda(torch.stack([f, f, f], dim=1), cohort)
     with pytest.raises(TypeError):
         tricubic.tricubic_apply_cuda(f.double(), plan)
     with pytest.raises(ValueError):

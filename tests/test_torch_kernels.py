@@ -348,7 +348,8 @@ def test_port_imports_neither_jax_nor_repro():
 
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")] + [
-        os.path.join(ROOT, "bench_torch", n) for n in ("fmad_ab.py", "tricubic_ab.py")]
+        os.path.join(ROOT, "bench_torch", n)
+        for n in ("fmad_ab.py", "tricubic_ab.py", "ptx_diff.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     offenders = [p for p in files if pattern.search(open(p).read())]
@@ -362,7 +363,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
         "import importlib\n"
         f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
-        "import chip_smoke, fmad_ab, tricubic_ab\n"
+        "import chip_smoke, fmad_ab, ptx_diff, tricubic_ab\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), ROOT, os.path.join(ROOT, "bench_torch")]))
@@ -390,10 +391,47 @@ def test_fmad_ab_flips_one_flag_and_needs_a_card():
     assert proc.stdout == ""
 
 
+def _ptx(kernels: dict[str, str], anon: str, first_block: int) -> str:
+    """A PTX module: one entry per kernel, its body ``body`` with a branch
+    to its block label numbered from ``first_block``."""
+    out = [".version 8.4", ".target sm_90a"]
+    for i, (name, body) in enumerate(kernels.items()):
+        mangled = f"_ZN44_GLOBAL__N__{anon}_11_tricubic_cu_f5c7b239{len(name)}{name}EPKfPfi"
+        bb = f"$L__BB{first_block + i}_2"
+        out += [f".visible .entry {mangled}(", f"\t.param .u64 {mangled}_param_0", ")",
+                "{", f"\t{body}", f"\t@%p1 bra \t{bb};", f"{bb}:", "\tret;", "}", ""]
+    return "\n".join(out)
+
+
+def test_ptx_diff_ignores_only_names_and_block_labels():
+    """Kernels whose mangled names and block numbering differ but whose
+    instructions agree are identical; a changed instruction differs; a
+    kernel the new copy lacks is missing; new kernels are listed."""
+    sys.path.insert(0, os.path.join(ROOT, "bench_torch"))
+    try:
+        import ptx_diff
+    finally:
+        sys.path.remove(os.path.join(ROOT, "bench_torch"))
+    assert ptx_diff.kernel_name("_ZN44_GLOBAL__N__8cdf822f_11_tricubic_cu_f5c7b23912"
+                                "apply_kernelEPKfPKiS1_PfiiiiPi") == "apply_kernel"
+    old = ptx_diff.bodies(_ptx({"apply_kernel": "add.f32 %f1, %f2, %f3;",
+                                "displace_kernel": "mul.f32 %f1, %f2, %f3;",
+                                "field_warp_kernel": "ret;"}, "8cdf822f", 0))
+    new = ptx_diff.bodies(_ptx({"apply_kernel": "add.f32 %f1, %f2, %f3;",
+                                "apply_cohort_kernel": "add.f32 %f1, %f2, %f3;",
+                                "displace_kernel": "fma.rn.f32 %f1, %f2, %f3, %f4;"},
+                               "ff0287a2", 3))
+    got = ptx_diff.compare(old, new)
+    assert {k: v["verdict"] for k, v in got["kernels"].items()} == {
+        "apply_kernel": "identical", "displace_kernel": "differs",
+        "field_warp_kernel": "missing"}
+    assert got["new_only"] == ["apply_cohort_kernel"]
+
+
 def test_tricubic_ab_builds_the_first_design_beside_the_tree_and_needs_a_card():
     """The A/B baseline is the kernels' first design (one thread per point,
-    no staged-tile counter in its entry points), and the script refuses to
-    run without a card."""
+    no staged-tile counter and no subject count in its entry points), and
+    the script refuses to run without a card."""
     script = os.path.join(ROOT, "bench_torch", "tricubic_ab.py")
     sys.path.insert(0, os.path.dirname(script))
     try:
@@ -403,8 +441,9 @@ def test_tricubic_ab_builds_the_first_design_beside_the_tree_and_needs_a_card():
     base = tricubic_ab.BASELINE.read_text()
     assert "Shared-memory staging and several points per thread are later work" in base
     assert "staged_tiles" not in base and "staged_tiles" in build.SOURCES[0].read_text()
+    # the tree's K1 and K2 take the subject count and the counter
     for name in ("tricubic_apply_f32", "tricubic_displace_many_f32"):
-        assert len(tricubic_ab.BASELINE_SIGNATURES[name]) + 1 == len(build.SIGNATURES[name])
+        assert len(tricubic_ab.BASELINE_SIGNATURES[name]) + 2 == len(build.SIGNATURES[name])
     # the first design's K3 takes neither a channel count nor the counter
     name = "tricubic_displace_f32"
     assert len(tricubic_ab.BASELINE_SIGNATURES[name]) + 2 == len(build.SIGNATURES[name])

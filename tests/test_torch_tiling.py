@@ -2,8 +2,8 @@
 on the CPU.
 
 ``tricubic.staged_tiles`` is the plain model of which output tiles the
-kernels stage in shared memory, and ``tricubic.warp_base`` the
-single-field displace's stencil base.  These tests pin the model on fields
+kernels stage in shared memory (each subject's, for a cohort launch), and
+``tricubic.warp_base`` the single-field displace's stencil base.  These tests pin the model on fields
 whose counts can be worked out by hand, check that its constants are the
 kernel's, and emulate both branches of the kernels step by step in numpy
 float32 (the box copy with its periodic wrap, the per-point box offsets,
@@ -88,6 +88,36 @@ def test_smooth_shifted_field_stages_nearly_all_tiles():
     staged = tricubic.staged_tiles(torch.floor(d).to(torch.int32))
     assert staged >= 0.95 * tricubic.n_tiles(shape)
     assert tricubic.staged_tiles(_constant(shape, 10)) == tricubic.n_tiles(shape)
+
+
+@pytest.mark.parametrize("shape", [(40, 48, 36), (12, 20, 9)])
+def test_cohort_stages_each_subjects_tiles(shape):
+    """A cohort launch stages each subject's tile as a single-subject launch
+    on that subject's bases would: subjects that stage every tile (no
+    displacement), none (random) and most (smooth), counted together; and
+    a launch over S subjects books S times the tiles."""
+    rng = np.random.default_rng(0)
+    random = torch.floor(torch.from_numpy(
+        rng.uniform(-12, 12, (3,) + shape).astype(np.float32))).to(torch.int32)
+    smooth = torch.floor(_smooth(shape, 4.0)).to(torch.int32)
+    subjects = [_constant(shape, 0), random, smooth]
+    cohort = torch.stack(subjects)
+    singles = [tricubic.staged_tiles(b) for b in subjects]
+    assert singles[0] == tricubic.n_tiles(shape) and singles[1] == 0
+    assert tricubic.staged_tiles(cohort) == sum(singles)
+    assert tricubic.staged_tiles(cohort, tricubic.WARP_BOX_ROWS) == sum(
+        tricubic.staged_tiles(b, tricubic.WARP_BOX_ROWS) for b in subjects)
+    d = torch.stack([b.to(torch.float32) + 0.25 for b in subjects])
+    plan = ref.make_interp_plan(d)
+    for name in ("tricubic_apply", "tricubic_displace_many"):
+        base = tricubic.stencil_base(name, d, plan)
+        assert base.shape == (3, 3) + shape
+        assert tricubic.staged_tiles(base) == sum(singles)
+    with tricubic.count_staged() as counts:
+        tricubic._path_counter("tricubic_apply", shape, "cpu", len(subjects))
+        tricubic._path_counter("tricubic_apply", shape, "cpu")
+    assert counts == {("tricubic_apply", shape): {"staged": 0,
+                                                  "tiles": 4 * tricubic.n_tiles(shape)}}
 
 
 def test_ragged_edge_counts():
