@@ -27,7 +27,7 @@ plain version.  Needs one CUDA card and ``nvcc``.
 
 The module also holds the measurement helpers that ``tricubic_ab.py``,
 ``chip_smoke.py`` and the port's tests share: ``time_ms``,
-``smooth_disp``, ``raw_launcher`` and ``plain``.
+``smooth_disp``, ``raw_launcher``, ``plain`` and ``poisoned_cohort_case``.
 """
 from __future__ import annotations
 
@@ -95,7 +95,8 @@ def smooth_disp(shape, max_disp: float, gen: torch.Generator, dev) -> torch.Tens
     return (d * (max_disp / d.abs().max())).contiguous()
 
 
-def raw_launcher(lib, name: str, f, disp=None, plan=None, counter=None, staged_arg: bool = True):
+def raw_launcher(lib, name: str, f, disp=None, plan=None, counter=None, staged_arg: bool = True,
+                 out=None):
     """A function that launches one tricubic kernel of ``lib`` by a direct
     call of its C entry point on the current stream, into an output
     allocated here, and returns that output.  A timing of it leaves out the
@@ -110,9 +111,10 @@ def raw_launcher(lib, name: str, f, disp=None, plan=None, counter=None, staged_a
     either (the first design).  The
     function holds every tensor whose pointer it passes: a closure that
     kept only ``data_ptr()`` would let a tensor be freed and the kernel read
-    whatever the allocator put there next."""
+    whatever the allocator put there next.  ``out``: the output tensor
+    (contiguous, ``f``'s shape), else one is allocated here."""
     c, (n1, n2, n3) = f.shape[0], f.shape[-3:]
-    out = torch.empty_like(f)
+    out = torch.empty_like(f) if out is None else out
     stream = torch.cuda.current_stream().cuda_stream
     extra = (None if counter is None else counter.data_ptr(),) if staged_arg else ()
     subjects = (f.shape[1] if f.ndim == 5 else 1,) if staged_arg else ()
@@ -137,6 +139,65 @@ def raw_launcher(lib, name: str, f, disp=None, plan=None, counter=None, staged_a
         return held[3]
 
     return launch
+
+
+GUARD_WORDS = 1 << 16  # f32 words of guard on each side of a guarded output
+GUARD_VALUE = -123.25
+
+
+def poisoned_cohort_case(lib, name: str, f, disp, subject: int, value: float,
+                         where: str = "disp") -> dict:
+    """K1 ("tricubic_apply", its plan made from ``disp``) or K2
+    ("tricubic_displace_many") over a cohort, fields ``f`` (C, S, N..) and
+    displacements ``disp`` (S, 3, N..), with every other x1-plane of subject
+    ``subject``'s displacement (``where="disp"``) or fields
+    (``where="fields"``) set to ``value`` (NaN, +inf or -inf).
+
+    The poisoned launch writes into an output placed between two runs of
+    ``GUARD_WORDS`` words of ``GUARD_VALUE``.  Returns ``{"launch_ok",
+    "guard_intact", "healthy_equal", "healthy_equal_without",
+    "plain_equal"}``: the launch and the synchronisation after it raised
+    nothing; the guards are untouched; the other subjects' outputs equal,
+    bit for bit, those of the launch without the poison and those of a
+    launch of the other subjects alone; and the whole output equals the
+    plain cohort version's on the same poisoned inputs (NaN where it has
+    NaN)."""
+    f_bad, d_bad = f.clone(), disp.clone()
+    if where == "disp":
+        d_bad[subject, :, ::2] = value
+    else:
+        f_bad[:, subject, ::2] = value
+    healthy = [s for s in range(f.shape[1]) if s != subject]
+
+    def inputs(ff, dd):
+        if name == "tricubic_apply":
+            return {"plan": ref.make_interp_plan(dd)}
+        return {"disp": dd}
+
+    n = f.numel()
+    buf = torch.full((n + 2 * GUARD_WORDS,), GUARD_VALUE, device=f.device)
+    out_bad = buf[GUARD_WORDS:GUARD_WORDS + n].view(f.shape)
+    launch_ok = True
+    try:
+        raw_launcher(lib, name, f_bad, out=out_bad, **inputs(f_bad, d_bad))()
+        torch.cuda.synchronize()
+    except RuntimeError:
+        launch_ok = False
+    guard = torch.cat([buf[:GUARD_WORDS], buf[GUARD_WORDS + n:]])
+    clean = raw_launcher(lib, name, f, **inputs(f, disp))()
+    idx = torch.tensor(healthy, device=f.device)
+    f_h, d_h = f[:, idx].contiguous(), disp[idx].contiguous()
+    alone = raw_launcher(lib, name, f_h, **inputs(f_h, d_h))()
+    want = plain(name, f_bad, **inputs(f_bad, d_bad))
+    torch.cuda.synchronize()
+    return {
+        "launch_ok": launch_ok,
+        "guard_intact": bool(torch.all(guard == GUARD_VALUE)),
+        "healthy_equal": bool(torch.equal(out_bad[:, idx], clean[:, idx])),
+        "healthy_equal_without": bool(torch.equal(out_bad[:, idx], alone)),
+        "plain_equal": bool(torch.equal(torch.isnan(out_bad), torch.isnan(want))
+                            and torch.equal(torch.nan_to_num(out_bad), torch.nan_to_num(want))),
+    }
 
 
 def plain(name: str, f, disp=None, plan=None):

@@ -22,11 +22,21 @@ before it and read just after:
 * ``cohort_path``: ``gn.solve_cohort`` of 4 brain phantom pairs at 256^3,
   beside the 4 independent single-level solves of the same pairs;
 * ``serve_path``: ``launch.reg_serve.serve_jobs`` of 6 such pairs through
-  4 slots, with its refills and per-job billing.
+  4 slots, with its refills and per-job billing;
+* ``full_newton_parity``, ``full_newton_path``: the single-level
+  ``register()`` on the full Newton Hessian (``gauss_newton=False``),
+  kernels against plain versions at 64^3, and at 256^3 beside
+  ``main_path``;
+* ``resilience_path``: K1/K2 over a cohort with one subject poisoned by
+  NaN or +-inf (``poisoned_launches``), then ``serve_path``'s jobs with a
+  NaN injected into one of them and retried, the others bit for bit
+  ``serve_path``'s;
+* ``resume_path``: the same stream killed at its third iteration and
+  resumed from its latest snapshot, bit for bit ``serve_path``'s.
 
-The launches of K1 and K2 on the solve paths must equal the counts derived
-from the code.  K1-K3 stage a tile's stencil box in shared memory where it
-is small enough: on random displacements (``kernel_parity``), on smooth
+The launches of K1 and K2 on the solve and serve paths must equal the
+counts derived from the code.  K1-K3 stage a tile's stencil box in shared
+memory where it is small enough: on random displacements (``kernel_parity``), on smooth
 ones, on the solve's own fields (``kernel_parity_solve``) and, K3, on the
 warp's deformation they must equal their plain versions bit for bit and
 stage as many tiles as the plain model ``tricubic.staged_tiles`` says; on
@@ -47,6 +57,8 @@ result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -80,10 +92,6 @@ TIME_SIZES = (64, 128, N_MAIN)  # the ladder's grids
 MIN_PATH_STAGED_SHARE = 0.96
 V_TOL = 1e-4  # solve parity: max |v_kernel - v_ref|
 MAX_NEWTON = 3
-# examples/multilevel_registration.py: 3-level ladder, V-cycle preconditioner
-ML_SOLVER = dict(beta=1e-3, beta_continuation=(1e-1, 1e-2), n_t=4, max_newton=8, gtol=1e-2,
-                 max_cg=40)
-ML_LEVELS = 3
 # the cohort: the reference's cohort width (BENCH_cohort.json subjects 4,
 # serve slots 4) on brain_like(n, seed=s), s = 0..S-1; the server streams 6
 # such jobs, cut to SERVE_MAX_NEWTON Newton iterations
@@ -366,15 +374,17 @@ def phase_kernel_parity_solve(solve, errs) -> None:
 
 
 # --------------------------------------------------------------------------- #
-def _register(n, method, dev):
+def _register(n, method, dev, gauss_newton=True):
     """The default single-level ``register()`` on the brain phantom pair,
-    cut to ``MAX_NEWTON`` Newton iterations.  Returns (result, images)."""
+    cut to ``MAX_NEWTON`` Newton iterations; with ``gauss_newton=False``
+    on the full Newton Hessian.  Returns (result, images)."""
     from repro_torch.core import gauss_newton as gn
     from repro_torch.core.registration import RegistrationConfig, register
     from repro_torch.data import synthetic
 
     rho_R, rho_T, grid = synthetic.brain_like(n, seed=SEED, device=dev)
-    cfg = RegistrationConfig(solver=gn.GNConfig(max_newton=MAX_NEWTON, interp_method=method))
+    cfg = RegistrationConfig(solver=gn.GNConfig(max_newton=MAX_NEWTON, interp_method=method,
+                                                gauss_newton=gauss_newton))
     return register(rho_R, rho_T, cfg, grid=grid, device=dev), (rho_R, rho_T)
 
 
@@ -389,12 +399,41 @@ def phase_solve_parity(dev) -> None:
     require(dv < V_TOL, f"max |v_kernel - v_ref| = {dv} >= {V_TOL}")
 
 
+def phase_full_newton_parity(dev) -> None:
+    """The single-level ``register()`` at 64^3 on the full Newton Hessian
+    (``GNConfig(gauss_newton=False)``) through the kernels and through the
+    plain versions: identical counts, max|dv| 0, and no launch on the plain
+    run; the kernel run's launches as counted from the code."""
+    outs, launches = {}, {}
+    for method in ("auto", "ref"):
+        _reset_launches()
+        outs[method] = _register(N_SOLVE_PARITY, method, dev, gauss_newton=False)[0]
+        torch.cuda.synchronize()
+        launches[method] = _launches()
+    hist = {m: [{k: h[k] for k in ("cg_iters", "armijo_trials", "status")} for h in o["history"]]
+            for m, o in outs.items()}
+    dv = float((outs["auto"]["v"] - outs["ref"]["v"]).abs().max())
+    expected = _expected_launches(outs["auto"]["history"])
+    emit("full_newton_parity", n=N_SOLVE_PARITY, history=hist,
+         newton_iters={m: o["newton_iters"] for m, o in outs.items()}, max_abs_dv=dv,
+         launches=launches, expected_launches_auto=expected)
+    require(hist["auto"] == hist["ref"], f"full Newton counts differ: {hist}")
+    require(dv == 0.0, f"full Newton max |v_kernel - v_ref| = {dv} != 0")
+    require(all(n == 0 for n in launches["ref"].values()),
+            f"the plain full Newton run launched kernels: {launches['ref']}")
+    _require_launched(launches["auto"], expected, "full_newton_parity")
+    _check_solution(outs["auto"])
+
+
 def _solve_launches(history) -> tuple[int, int]:
     """(K2, K1) launches of ``gn.solve``'s Newton iterations in ``history``.
 
     K2 (departure solve): 2 per Newton state (+v and -v), 1 per Armijo
     trial.  K1 (planned apply): 4 for the state and 4 for the adjoint
-    transport of each Newton state, 8 per GN matvec, 4 per Armijo trial.
+    transport of each Newton state, 8 per Hessian matvec, 4 per Armijo
+    trial.  The full Newton matvec launches as the Gauss-Newton one: its
+    incremental state series and its incremental adjoint take one C=2 step
+    each per time step, and its extra spectral terms launch nothing.
     """
     newton = len(history)
     trials = sum(1 + h["armijo_trials"] for h in history)
@@ -523,23 +562,72 @@ def phase_main(dev) -> tuple[dict, dict, tuple, dict]:
     _require_launched(launches, expected, "main_path")
     _require_staged(staged, "main_path")
     _check_solution(out)
+    out["smoke"] = {"seconds": secs, "iterations": iters,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
     return out, launches, images, staged
+
+
+def phase_full_newton(main_out, dev) -> dict:
+    """The single-level ``register()`` at 256^3 on the full Newton Hessian,
+    default config otherwise, cut to MAX_NEWTON as ``main_path``: seconds,
+    peak memory, per-iteration cg_iters and gnorm beside ``main_path``'s
+    (same call), launches against the count from the code, K1/K2's staged
+    share, and every status a health status (the full Hessian may be
+    indefinite away from the solution, so a ``pcg_breakdown`` is reported,
+    not failed)."""
+    from repro_torch import telemetry
+    from repro_torch.kernels import tricubic
+    from repro_torch.resilience import health
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with telemetry.ListSink() as sink, tricubic.count_staged() as counts:
+        out, _ = _register(N_MAIN, "auto", dev, gauss_newton=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _launches()
+    staged = _path_staged(counts)
+    walls = [r["wall_s"] for r in sink.records if r["kind"] == "newton_iter"]
+
+    def iters(o, w):
+        return [{k: h[k] for k in ("iter", "J", "gnorm", "rel_gnorm", "cg_iters",
+                                   "armijo_trials", "status")} | {"wall_s": x}
+                for h, x in zip(o["history"], w)]
+
+    expected = _expected_launches(out["history"])
+    emit("full_newton_path", n=N_MAIN, seconds=secs, iterations=iters(out, walls),
+         newton_iters=out["newton_iters"], hessian_matvecs=out["hessian_matvecs"],
+         status=out["status"], det_min=out["det_min"], det_max=out["det_max"],
+         residual_rel=out["residual_rel"], max_memory_allocated=peak, launches=launches,
+         expected_launches=expected, staged_tiles=staged,
+         main_path={"seconds": main_out["seconds"], "iterations": main_out["iterations"],
+                    "max_memory_allocated": main_out["max_memory_allocated"]})
+    _require_launched(launches, expected, "full_newton_path")
+    _require_staged(staged, "full_newton_path")
+    _check_solution(out)
+    statuses = [h["status"] for h in out["history"]] + [out["status"]]
+    require(all(st in health.STATUS_NAMES.values() for st in statuses),
+            f"full_newton_path: statuses {statuses}")
+    return {"launches": launches, "staged": staged}
 
 
 # --------------------------------------------------------------------------- #
 def _register_ml(n, method, dev):
-    """The example's coarse-to-fine ``register()`` (3-level ladder, V-cycle)
-    on the brain phantom pair.  Returns (result, multilevel config, images)."""
-    from repro_torch.core import gauss_newton as gn
-    from repro_torch.core.registration import RegistrationConfig, register
+    """The coarse-to-fine ``register()`` of
+    ``repro_torch.examples.multilevel_registration`` (3 levels, V-cycle
+    preconditioner) on the brain phantom pair, with
+    ``interp_method=method``.  Returns (result, multilevel config, images)."""
+    from repro_torch.core.registration import register
     from repro_torch.data import synthetic
-    from repro_torch.multilevel import MultilevelConfig
+    from repro_torch.examples import multilevel_registration
 
     rho_R, rho_T, grid = synthetic.brain_like(n, seed=SEED, device=dev)
-    mcfg = MultilevelConfig(solver=gn.GNConfig(**ML_SOLVER, interp_method=method),
-                            n_levels=ML_LEVELS, precond="vcycle")
-    out = register(rho_R, rho_T, RegistrationConfig(multilevel=mcfg), grid=grid, device=dev)
-    return out, mcfg, (rho_R, rho_T)
+    cfg = multilevel_registration.config(method)
+    out = register(rho_R, rho_T, cfg, grid=grid, device=dev)
+    return out, cfg.multilevel, (rho_R, rho_T)
 
 
 def _level_summary(out) -> list[dict]:
@@ -594,7 +682,7 @@ def phase_multilevel(dev) -> dict:
     staged = _path_staged(counts)
     expected = _expected_ml_launches(out, mcfg)
     emit("multilevel_path", n=N_MAIN, grids=out["grids"], seconds=secs,
-         solver=ML_SOLVER, precond="vcycle", max_newton_cut=False,
+         solver=dataclasses.asdict(mcfg.solver), precond=mcfg.precond, max_newton_cut=False,
          levels=_level_summary(out), newton_iters=out["newton_iters"],
          hessian_matvecs=out["hessian_matvecs"], fine_matvecs=out["fine_matvecs"],
          fine_equiv_matvecs=out["fine_equiv_matvecs"],
@@ -711,7 +799,8 @@ def _kernel_class(name: str) -> str:
 
 def _profile_newton(phase: str, n: int, newton, **extra) -> None:
     """Device time of one Newton iteration (``newton()`` returns its log) by
-    kernel class, from torch.profiler's CUDA activity, beside its host wall."""
+    kernel class, from torch.profiler's CUDA activity, beside its host wall;
+    ``extra`` values that are callables are read after the iteration."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -733,6 +822,7 @@ def _profile_newton(phase: str, n: int, newton, **extra) -> None:
     busy = sum(by_class.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     cg = log.cg_iters.tolist() if torch.is_tensor(log.cg_iters) else log.cg_iters
+    extra = {k: v() if callable(v) else v for k, v in extra.items()}
     emit(phase, n=n, **extra, cg_iters=cg, armijo_trials=log.ls_iters,
          wall_ms_profiled=wall * 1e3,
          device_ms=by_class if busy else "not measured: the profiler recorded no CUDA activity",
@@ -742,19 +832,23 @@ def _profile_newton(phase: str, n: int, newton, **extra) -> None:
 
 def phase_profile(out, images, dev) -> None:
     """One more single-level Newton iteration at 256^3 from the solved
-    velocity, with the spectral preconditioner."""
+    velocity, with the spectral preconditioner; then the same iteration on
+    the full Newton Hessian (``full_newton_profile``)."""
     from repro_torch.core import gauss_newton as gn
     from repro_torch.core import objective as obj
     from repro_torch.core.spectral import SpectralOps
 
     grid = out["grid"]
-    cfg = gn.GNConfig()
     ops = SpectralOps(grid, device=dev)
-    prob = obj.Problem(grid, ops.smooth(images[0]), ops.smooth(images[1]), cfg.beta, cfg.n_t,
-                       cfg.incompressible)
     g0 = torch.tensor(out["history"][0]["gnorm"], dtype=torch.float32, device=dev)
-    _profile_newton("profile", N_MAIN,
-                    lambda: gn.newton_iteration(out["v"], g0, prob, ops, cfg)[1])
+    for phase, cfg in (("profile", gn.GNConfig()),
+                       ("full_newton_profile", gn.GNConfig(gauss_newton=False))):
+        prob = obj.Problem(grid, ops.smooth(images[0]), ops.smooth(images[1]), cfg.beta,
+                           cfg.n_t, cfg.incompressible)
+        torch.cuda.reset_peak_memory_stats()
+        _profile_newton(phase, N_MAIN,
+                        lambda: gn.newton_iteration(out["v"], g0, prob, ops, cfg)[1],
+                        max_memory_allocated=lambda: torch.cuda.max_memory_allocated())
 
 
 def phase_ml_profile(ml, dev) -> None:
@@ -1019,21 +1113,60 @@ def phase_cohort(dev) -> dict:
             "launches": launches, "staged": staged}
 
 
+def _serve_jobs(dev) -> list:
+    """SERVE_JOBS jobs of brain phantom pairs at 256^3, presmoothed."""
+    from repro_torch.launch import reg_serve
+
+    rho_R, rho_T, _ = _cohort_images(N_MAIN, dev, range(SERVE_JOBS))
+    return [reg_serve.RegJob(job_id=s, rho_R=rho_R[s], rho_T=rho_T[s])
+            for s in range(SERVE_JOBS)]
+
+
+def _serve_cfg():
+    return _cohort_cfg(max_newton=SERVE_MAX_NEWTON)
+
+
 class _RecordingStep:
-    """A ``gn.make_cohort_step`` step that keeps each call's active mask and
-    per-subject cg_iters, so that the server's billing can be recomputed
-    from what the step returned."""
+    """A ``gn.make_cohort_step`` step that keeps each call's active mask,
+    per-subject cg_iters and shared Armijo halvings, so that the server's
+    billing and its launches can be recomputed from what the step returned."""
 
     def __init__(self, step):
         self.step, self.ops, self.calls = step, step.ops, []
 
     def __call__(self, v, g0_forcing, active, *rest):
         v_new, log = self.step(v, g0_forcing, active, *rest)
-        self.calls.append((active.cpu().numpy(), log.cg_iters.cpu().numpy()))
+        self.calls.append((active.cpu().numpy(), log.cg_iters.cpu().numpy(), log.ls_iters))
         return v_new, log
 
     def _cache_size(self) -> int:
         return self.step._cache_size()
+
+
+@contextlib.contextmanager
+def _recording_steps():
+    """Every cohort step the server builds in the block is a
+    ``_RecordingStep``; yields the list of them."""
+    from unittest import mock
+
+    from repro_torch.core import gauss_newton as gn
+
+    steps, make_step = [], gn.make_cohort_step
+
+    def recording(*args, **kwargs):
+        steps.append(_RecordingStep(make_step(*args, **kwargs)))
+        return steps[-1]
+
+    with mock.patch.object(gn, "make_cohort_step", recording):
+        yield steps
+
+
+def _expected_served_launches(steps) -> dict:
+    """Launches of a server's run, counted from its steps' calls: each call
+    is one cohort Newton iteration (``_expected_cohort_launches``).  The
+    server interpolates nowhere else."""
+    return _expected_cohort_launches([{"cg_iters": [int(c) for c in cg], "armijo_trials": ls}
+                                      for step in steps for _, cg, ls in step.calls])
 
 
 def phase_serve(dev) -> dict:
@@ -1041,37 +1174,27 @@ def phase_serve(dev) -> dict:
     COHORT_S slots, default config cut to SERVE_MAX_NEWTON: each job's
     billing and status, the server's iterations and refills, and its step
     signatures.  Gates: one step signature, at least 2 refills, every job
-    retired with a status, and every job billed the sum of its slot's
-    cg_iters over the steps it held the slot."""
-    from unittest import mock
-
+    retired with a status, every job billed the sum of its slot's cg_iters
+    over the steps it held the slot, and K1/K2 launched as counted from
+    the steps' calls."""
     from repro_torch import telemetry
-    from repro_torch.core import gauss_newton as gn
     from repro_torch.kernels import build, tricubic
     from repro_torch.launch import reg_serve
 
-    rho_R, rho_T, _ = _cohort_images(N_MAIN, dev, range(SERVE_JOBS))
-    jobs = [reg_serve.RegJob(job_id=s, rho_R=rho_R[s], rho_T=rho_T[s])
-            for s in range(SERVE_JOBS)]
-    steps, make_step = [], gn.make_cohort_step
-
-    def recording(*args, **kwargs):
-        steps.append(_RecordingStep(make_step(*args, **kwargs)))
-        return steps[-1]
-
+    jobs = _serve_jobs(dev)
     lib = build.library()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
-    with mock.patch.object(gn, "make_cohort_step", recording), telemetry.ListSink() as sink, \
+    with _recording_steps() as steps, telemetry.ListSink() as sink, \
             tricubic.count_staged() as counts:
-        out = reg_serve.serve_jobs(jobs, _cohort_cfg(max_newton=SERVE_MAX_NEWTON),
-                                   slots=COHORT_S, device=dev)
+        out = reg_serve.serve_jobs(jobs, _serve_cfg(), slots=COHORT_S, device=dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     launches = _launches()
     staged = _path_staged(counts)
+    expected = _expected_served_launches(steps)
     (bucket,) = out["buckets"].values()
     events = {r["job_id"]: r for r in sink.records if r["kind"] == "job"}
     calls = steps[0].calls if len(steps) == 1 else []
@@ -1082,14 +1205,14 @@ def phase_serve(dev) -> dict:
         per_job.append({"job": res.job_id, "slot": ev["slot"], "status": res.status,
                         "newton_iters": res.newton_iters, "hessian_matvecs": res.hessian_matvecs,
                         "steps": [ev["admitted_step"], ev["retired_step"]],
-                        "slot_cg_iters": [int(cg[ev["slot"]]) for _, cg in residency],
+                        "slot_cg_iters": [int(cg[ev["slot"]]) for _, cg, _ in residency],
                         "rel_gnorm": res.rel_gnorm})
     emit("serve_path", n=N_MAIN, jobs=SERVE_JOBS, slots=COHORT_S, max_newton=SERVE_MAX_NEWTON,
          seconds=secs, cohort_iterations=bucket["cohort_iterations"], refills=bucket["refills"],
          compiled_executables=out["compiled_executables"], per_job=per_job,
-         occupancy=[int(a.sum()) for a, _ in calls],
+         occupancy=[int(a.sum()) for a, _, _ in calls],
          max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
-         staged_tiles=staged)
+         expected_launches=expected, staged_tiles=staged)
     require(len(steps) == 1, f"serve_path built {len(steps)} cohort steps")
     require(out["compiled_executables"] == 1,
             f"serve_path: {out['compiled_executables']} step signatures")
@@ -1105,12 +1228,232 @@ def phase_serve(dev) -> dict:
                 f"cg_iters {j['slot_cg_iters']}")
         require(j["newton_iters"] == len(j["slot_cg_iters"]),
                 f"serve_path: job {j['job']} held its slot for {j['slot_cg_iters']}")
-    for name in ("tricubic_apply", "tricubic_displace_many"):
-        require(launches[name] > 0, f"{name} was not launched on serve_path")
+    _require_launched(launches, expected, "serve_path")
     require(all(np.isfinite(float(r.rel_gnorm)) for r in out["results"]),
             "serve_path: non-finite rel_gnorm")
     _require_staged(staged, "serve_path")
+    return {"launches": launches, "staged": staged, "out": out}
+
+
+def _job_summary(res) -> dict:
+    return {"job": res.job_id, "status": res.status, "attempts": res.attempts,
+            "newton_iters": res.newton_iters, "hessian_matvecs": res.hessian_matvecs,
+            "rel_gnorm": res.rel_gnorm}
+
+
+def _same_result(a, b) -> bool:
+    """Two JobResults of one job: velocity bit for bit, and the billing."""
+    return (torch.equal(a.v, b.v) and a.newton_iters == b.newton_iters
+            and a.hessian_matvecs == b.hessian_matvecs and a.status == b.status)
+
+
+def _poisoned_launches(jobs, dev) -> list[dict]:
+    """K1 (C=2) and K2 (C=3) over COHORT_S of the serve jobs' subjects at
+    256^3, subject 1 with NaN, +inf or -inf in every other x1-plane of its
+    displacement (its slot velocity's RK2 midpoint displacement) or of its
+    fields (``fmad_ab.poisoned_cohort_case``): no CUDA error, nothing
+    written outside the output, the healthy subjects bit for bit the
+    launch without the poison and the launch without the subject, and the
+    output the plain cohort version's."""
+    from fmad_ab import poisoned_cohort_case, smooth_disp
+    from repro_torch.kernels import build
+
+    lib = build.library()
+    rho_T = torch.stack([j.rho_T for j in jobs[:COHORT_S]])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    disp = torch.stack([smooth_disp((N_MAIN,) * 3, SMOOTH_DISP, gen, dev)
+                        for _ in range(COHORT_S)])
+    fields = {"tricubic_apply": torch.stack([rho_T, rho_T * rho_T]).contiguous(),
+              "tricubic_displace_many": disp.transpose(0, 1).contiguous()}
+    cases = []
+    for name, f in fields.items():
+        for where in ("disp", "fields"):
+            for value in (float("nan"), float("inf"), float("-inf")):
+                case = poisoned_cohort_case(lib, name, f, disp, 1, value, where)
+                cases.append({"kernel": name, "poisoned": where, "value": str(value), **case})
+        del f
+    return cases
+
+
+def phase_resilience(serve, dev) -> dict:
+    """``serve_jobs`` of ``serve_path``'s jobs and config with
+    ``NaNInjector(job_id=1, field="v", at_iteration=1)`` and
+    ``RetryPolicy(max_attempts=2)`` retrying the failure statuses (the
+    default also retries ``max_newton``, the status of every job under the
+    SERVE_MAX_NEWTON cut).  Gates: the fault fired; job 1 retired
+    ``nonfinite`` at attempt 1 and finished at attempt 2 with a finite v;
+    every other job's v, counts and status bit for bit ``serve_path``'s;
+    one step built, one step signature and one retry bucket; K1 and K2
+    launched as counted from the steps' calls and no CUDA error after a
+    synchronisation; the trace's fault, recovery and
+    per-attempt job records valid under the schema.  First, K1 and K2 over
+    a cohort with a poisoned subject (``_poisoned_launches``)."""
+    from repro_torch import telemetry
+    from repro_torch.kernels import tricubic
+    from repro_torch.launch import reg_serve
+    from repro_torch.resilience import NaNInjector, RetryPolicy, health
+
+    jobs = _serve_jobs(dev)
+    poisoned = _poisoned_launches(jobs, dev)
+    emit("poisoned_launches", n=N_MAIN, subjects=COHORT_S, cases=poisoned)
+    bad = [c for c in poisoned if not all(c[k] for k in ("launch_ok", "guard_intact",
+                                                         "healthy_equal",
+                                                         "healthy_equal_without",
+                                                         "plain_equal"))]
+    require(not bad, f"poisoned cohort launches: {bad}")
+    fault = NaNInjector(job_id=1, field="v", at_iteration=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _recording_steps() as steps, telemetry.ListSink() as sink, \
+            tricubic.count_staged() as counts:
+        out = reg_serve.serve_jobs(jobs, _serve_cfg(), slots=COHORT_S, device=dev,
+                                   retry=RetryPolicy(max_attempts=2,
+                                                     retry_on=health.FAILED_NAMES),
+                                   faults=[fault])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = _launches()
+    staged = _path_staged(counts)
+    expected = _expected_served_launches(steps)
+    res = {r.job_id: r for r in out["results"]}
+    base = {r.job_id: r for r in serve["out"]["results"]}
+    records = [r for r in sink.records if r["kind"] in ("fault", "recovery", "job")]
+    invalid = [(r["kind"], telemetry.validate_record(r)) for r in sink.records
+               if telemetry.validate_record(r)]
+    job1 = [r for r in records if r["kind"] == "job" and r["job_id"] == "1"]
+    retry_buckets = [k for k, st in out["buckets"].items() if st["attempt"] > 1]
+    emit("resilience_path", n=N_MAIN, jobs=SERVE_JOBS, slots=COHORT_S,
+         max_newton=SERVE_MAX_NEWTON, seconds=secs, fired=fault.fired,
+         per_job=[_job_summary(r) for r in out["results"]],
+         bit_identical_to_serve_path={str(j): _same_result(res[j], base[j])
+                                      for j in base if j != 1},
+         buckets={str(k): st for k, st in out["buckets"].items()},
+         compiled_executables=out["compiled_executables"],
+         trace=[{k: r.get(k) for k in ("kind", "fault", "action", "job_id", "attempts",
+                                       "status", "target")} for r in records],
+         invalid_records=invalid, max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, expected_launches=expected, staged_tiles=staged)
+    require(fault.fired, "resilience_path: the NaN injection did not fire")
+    require([(e["attempts"], e["status"]) for e in job1][:1] == [(1, "nonfinite")],
+            f"resilience_path: job 1's records {job1}")
+    require(res[1].attempts == 2 and res[1].status not in ("nonfinite", "diverged",
+                                                           "pcg_breakdown"),
+            f"resilience_path: job 1 ended {_job_summary(res[1])}")
+    require(bool(torch.isfinite(res[1].v).all()), "resilience_path: job 1's v is not finite")
+    require(sorted(res) == list(range(SERVE_JOBS)), f"resilience_path: jobs {sorted(res)}")
+    for j in base:
+        if j != 1:
+            require(_same_result(res[j], base[j]),
+                    f"resilience_path: job {j} differs from serve_path's: "
+                    f"{_job_summary(res[j])} against {_job_summary(base[j])}")
+    require(len(steps) == 1, f"resilience_path built {len(steps)} cohort steps")
+    require(out["compiled_executables"] == 1,
+            f"resilience_path: {out['compiled_executables']} step signatures")
+    require(len(retry_buckets) == 1, f"resilience_path: retry buckets {retry_buckets}")
+    _require_launched(launches, expected, "resilience_path")
+    kinds = {r["kind"] for r in records}
+    require({"fault", "recovery", "job"} <= kinds, f"resilience_path: trace kinds {kinds}")
+    require(not invalid, f"resilience_path: invalid records {invalid}")
     return {"launches": launches, "staged": staged}
+
+
+def phase_resume(serve, dev) -> dict:
+    """``serve_path``'s jobs with ``checkpoint=<temporary directory>``
+    (``checkpoint_every=2``) and ``KillAt(at_iteration=3)``; the
+    ``SimulatedCrash`` starts ``serve_jobs([], ..., resume=True)`` from the
+    latest snapshot.  Gates: every job bit for bit ``serve_path``'s result;
+    completed + unfinished == SERVE_JOBS with unfinished < SERVE_JOBS; only
+    the unfinished jobs emit job records on resume; the cohort iterations
+    those of the uninterrupted run; K1/K2 launched as counted from the
+    steps' calls, over the killed and the resumed run.  Reports the bytes
+    and seconds of each save and of the restore."""
+    import tempfile
+
+    from repro_torch import telemetry
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.launch import reg_serve
+    from repro_torch.resilience import KillAt, SimulatedCrash
+
+    io: list[dict] = []
+
+    class TimedManager(CheckpointManager):
+        """Times each save and restore and reports the bytes of its step."""
+
+        def save(self, step, tree, metadata=None, blocking=True):
+            t0 = time.perf_counter()
+            super().save(step, tree, metadata, blocking)
+            secs = time.perf_counter() - t0
+            path = os.path.join(self.dir, f"step_{step}")
+            nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+            io.append({"op": "save", "step": step, "bytes": nbytes, "seconds": secs})
+
+        def restore(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            got = super().restore(*args, **kwargs)
+            torch.cuda.synchronize()
+            io.append({"op": "restore", "step": got[1]["step"],
+                       "seconds": time.perf_counter() - t0})
+            return got
+
+    jobs = _serve_jobs(dev)
+    base = {r.job_id: r for r in serve["out"]["results"]}
+    kill = KillAt(at_iteration=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, _recording_steps() as steps:
+        mgr = TimedManager(tmp, keep=1)
+        try:
+            reg_serve.serve_jobs(jobs, _serve_cfg(), slots=COHORT_S, device=dev, checkpoint=mgr,
+                                 checkpoint_every=2, faults=[kill])
+            crashed = False
+        except SimulatedCrash:
+            crashed = True
+        del jobs
+        with telemetry.ListSink() as sink:
+            out = reg_serve.serve_jobs([], _serve_cfg(), slots=COHORT_S, device=dev,
+                                       checkpoint=mgr, checkpoint_every=2, resume=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        mgr.close()
+    launches = _launches()
+    expected = _expected_served_launches(steps)
+    res = {r.job_id: r for r in out["results"]}
+    recov = [r for r in sink.records if r["kind"] == "recovery"]
+    served = sorted({r["job_id"] for r in sink.records if r["kind"] == "job"})
+    attrs = recov[0]["attrs"] if recov else {}
+    (bucket,) = out["buckets"].values()
+    (base_bucket,) = serve["out"]["buckets"].values()
+    emit("resume_path", n=N_MAIN, jobs=SERVE_JOBS, slots=COHORT_S, crashed=crashed,
+         killed_at=kill.at_iteration, seconds=secs, checkpoint_io=io,
+         recovery=[{k: r.get(k) for k in ("action", "step", "attrs")} for r in recov],
+         served_on_resume=served, per_job=[_job_summary(r) for r in out["results"]],
+         bit_identical_to_serve_path={str(j): _same_result(res[j], base[j]) for j in base
+                                      if j in res},
+         cohort_iterations=bucket["cohort_iterations"],
+         uninterrupted_cohort_iterations=base_bucket["cohort_iterations"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+         expected_launches=expected)
+    require(crashed and kill.fired, "resume_path: the kill did not fire")
+    require(sorted(res) == sorted(base), f"resume_path: jobs {sorted(res)}")
+    for j in base:
+        require(_same_result(res[j], base[j]),
+                f"resume_path: job {j} differs from serve_path's: {_job_summary(res[j])} "
+                f"against {_job_summary(base[j])}")
+    require(recov and recov[0]["action"] == "resume_from_checkpoint",
+            f"resume_path: recovery records {recov}")
+    require(attrs.get("completed", -1) + attrs.get("unfinished", -1) == SERVE_JOBS
+            and attrs["unfinished"] < SERVE_JOBS, f"resume_path: resumed with {attrs}")
+    require(len(served) == attrs["unfinished"],
+            f"resume_path: served {served} on resume, {attrs['unfinished']} unfinished")
+    require(bucket["cohort_iterations"] == base_bucket["cohort_iterations"],
+            f"resume_path: {bucket['cohort_iterations']} cohort iterations against "
+            f"{base_bucket['cohort_iterations']}")
+    _require_launched(launches, expected, "resume_path")
+    return {"launches": launches}
 
 
 def phase_cohort_profile(cohort, dev) -> None:
@@ -1302,6 +1645,7 @@ def main() -> int:
     errs = phase_kernel_parity(dev)
     phase_cohort_kernel_parity(dev, errs)
     phase_solve_parity(dev)
+    phase_full_newton_parity(dev)
     phase_ml_solve_parity(dev)
     phase_cohort_solve_parity(dev)
     ml = phase_multilevel(dev)
@@ -1309,6 +1653,7 @@ def main() -> int:
     del ml
     torch.cuda.empty_cache()
     out, main_launches, images, main_staged = phase_main(dev)
+    full_newton = phase_full_newton(out["smoke"], dev)
     warp = phase_warp(out, images, dev)
     spectral = phase_spectral(images, dev)
     solve = _solve_fields(out, dev)
@@ -1317,10 +1662,11 @@ def main() -> int:
     del solve
     phase_profile(out, images, dev)
     del out, images
-    launches = {"main_path": main_launches, "warp": warp["launches"],
-                "spectral": spectral["launches"]}
+    launches = {"main_path": main_launches, "full_newton_path": full_newton["launches"],
+                "warp": warp["launches"], "spectral": spectral["launches"]}
     # the share of the tiles of each kernel's launches on its path that staged
-    path_staged = {"main_path": main_staged, "warp": warp["staged"], "spectral": {}}
+    path_staged = {"main_path": main_staged, "full_newton_path": full_newton["staged"],
+                   "warp": warp["staged"], "spectral": {}}
     del warp, spectral
     torch.cuda.empty_cache()
     cohort = phase_cohort(dev)
@@ -1331,6 +1677,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = phase_serve(dev)
     launches["serve_path"], path_staged["serve_path"] = serve["launches"], serve["staged"]
+    torch.cuda.empty_cache()
+    resilience = phase_resilience(serve, dev)
+    launches["resilience_path"] = resilience["launches"]
+    torch.cuda.empty_cache()
+    launches["resume_path"] = phase_resume(serve, dev)["launches"]
+    del serve
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],
          "replaces": meta["replaces"], "path": meta["path"], "parity": "ok",

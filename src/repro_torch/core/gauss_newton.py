@@ -1,9 +1,10 @@
-"""Inexact, preconditioned Gauss-Newton-Krylov solver (paper §III-A);
+"""Inexact, preconditioned (Gauss-)Newton-Krylov solver (paper §III-A);
 counterpart of ``repro/core/gauss_newton.py``, for one subject (``solve``)
 or a cohort of S subjects at once (``solve_cohort``).
 
 * Newton step from PCG on ``H(v) vt = -g(v)`` with the spectral
-  preconditioner ``(beta Lap^2)^{-1}``.
+  preconditioner ``(beta Lap^2)^{-1}``; ``H`` is the Gauss-Newton Hessian,
+  or the full one with ``GNConfig(gauss_newton=False)``.
 * Inexact solves: Eisenstat-Walker forcing
   ``eta_k = min(eta_max, sqrt(||g_k|| / ||g_0||))``.
 * Globalization: Armijo backtracking line search, with a steepest-descent
@@ -32,7 +33,7 @@ import torch
 from repro_torch import telemetry
 from repro_torch.core import objective as obj
 from repro_torch.core.grid import Grid
-from repro_torch.core.spectral import SpectralOps
+from repro_torch.core.spectral import SpectralOps, check_field_dtype
 from repro_torch.kernels import ops as kops
 from repro_torch.resilience import health
 
@@ -45,11 +46,15 @@ class GNConfig:
       ``"ref"``), so the default solve on a CUDA device runs every
       interpolation through the CUDA kernels; ``"ref"`` selects the plain
       PyTorch versions and ``"cuda"`` insists on the kernels.
-    * ``plan_dtype`` and ``field_dtype`` are accepted only as ``None``, and
-      ``autotune`` only as ``"off"`` or ``"cache"`` (both mean off here):
-      those knobs are ROADMAP Queue A item 12.  ``gauss_newton=False`` (the
-      full Newton Hessian) is not ported either.  Other values raise
-      ``NotImplementedError``.
+    * ``plan_dtype`` is accepted only as ``None``, ``field_dtype`` only as
+      ``None`` or float32 (the port's field dtype, so the identity; the
+      retry ladder's last rung sets it), and ``autotune`` only as ``"off"``
+      or ``"cache"`` (both mean off here): the other values are ROADMAP
+      Queue A item 12 and raise ``NotImplementedError``.
+
+    ``gauss_newton=False`` solves with the full Newton Hessian
+    (``objective.full_hessian_matvec``); a cohort solve refuses it, as the
+    reference does.
     """
 
     beta: float = 1e-2
@@ -76,14 +81,9 @@ class GNConfig:
         item12 = "is not ported (ROADMAP Queue A item 12)"
         if self.plan_dtype is not None:
             raise NotImplementedError(f"GNConfig.plan_dtype={self.plan_dtype!r} {item12}")
-        if self.field_dtype is not None:
-            raise NotImplementedError(f"GNConfig.field_dtype={self.field_dtype!r} {item12}")
+        check_field_dtype(self.field_dtype, "GNConfig")
         if self.autotune not in ("off", "cache"):
             raise NotImplementedError(f"GNConfig.autotune={self.autotune!r} {item12}")
-        if not self.gauss_newton:
-            raise NotImplementedError(
-                "GNConfig.gauss_newton=False (full Newton Hessian) is not ported"
-            )
 
 
 class PCGResult(NamedTuple):
@@ -201,7 +201,9 @@ def newton_iteration(
     interp=None,
     precond=None,
 ):
-    """One globalized inexact Gauss-Newton step.  Returns (v_new, NewtonLog).
+    """One globalized inexact Newton step, on the Gauss-Newton Hessian or,
+    with ``cfg.gauss_newton`` False, the full one.  Returns (v_new,
+    NewtonLog).
 
     ``g0_forcing`` is the Eisenstat-Walker forcing reference only; pass a
     tiny sentinel (``1e-30``) on a stage's first call to get
@@ -214,8 +216,10 @@ def newton_iteration(
     state = obj.newton_state(v, prob, ops, interp)
     gnorm = torch.sqrt(grid.norm_sq(state.g))
 
+    hessian = obj.gn_hessian_matvec if cfg.gauss_newton else obj.full_hessian_matvec
+
     def matvec(p):
-        return obj.gn_hessian_matvec(p, state, prob, ops, interp)
+        return hessian(p, state, prob, ops, interp)
 
     def spectral_precond(r):
         return ops.precond_project(r, prob.beta, prob.incompressible)
@@ -566,12 +570,20 @@ class CohortStep:
         return len(self.signatures)
 
 
+def _require_gauss_newton(cfg: GNConfig) -> None:
+    if not cfg.gauss_newton:
+        raise NotImplementedError(
+            "cohort solves support the Gauss-Newton Hessian only (cfg.gauss_newton=True)"
+        )
+
+
 def make_cohort_step(grid: Grid, cfg: GNConfig, ops: SpectralOps | None = None, interp=None,
                      device="cuda") -> CohortStep:
     """Build the cohort step of a (grid, cfg) bucket (``CohortStep``): what
     ``solve_cohort`` iterates and what ``launch/reg_serve.py`` keeps for its
     bucket across job admissions.  ``device`` is used when ``ops`` is not
     given."""
+    _require_gauss_newton(cfg)
     ops = ops or SpectralOps(grid, device=device)
     return CohortStep(grid, cfg, ops, interp or _interp_fn(cfg))
 
@@ -607,6 +619,7 @@ def solve_cohort(
     ``compiled_executables``, the argument signatures the step was called
     with (``CohortStep``), 1 across a whole continuation schedule.
     """
+    _require_gauss_newton(cfg)
     if step_fn is None:
         step_fn = make_cohort_step(grid, cfg, ops=ops, interp=interp, device=device)
     dev = step_fn.ops.device

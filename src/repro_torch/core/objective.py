@@ -1,9 +1,14 @@
-"""Objective, reduced gradient, and Gauss-Newton Hessian matvec (paper §II-B);
+"""Objective, reduced gradient, and the Gauss-Newton and full Newton Hessian
+matvecs (paper §II-B);
 counterpart of ``repro/core/objective.py``.
 
     J[v]   = 1/2 ||rho(1) - rho_R||^2_L2 + beta/2 ||Lap v||^2_L2          (2a)
     g(v)   = beta Lap^2 v + P b,    b = int_0^1 lam grad rho dt           (4)
     H vt   = beta Lap^2 vt + P bt,  bt = int_0^1 lamt grad rho dt (GN)    (5e)
+
+The full Newton Hessian (``full_hessian_matvec``) keeps every term of
+eq. (5): the div(lam vt) source of the incremental adjoint and
+int lam grad rho~ dt in bt.
 
 ``P`` is the Leray projection in incompressible mode, identity otherwise.
 A ``NewtonState`` caches what the PCG matvecs of one Newton iteration
@@ -134,6 +139,42 @@ def gn_hessian_matvec(
     rho1_t = semilag.transport_inc_state(vtilde, state.grad_rho_series, state.plan, interp)
     lamt_series = semilag.transport_inc_adjoint(-rho1_t, state.plan, interp)
     bt = semilag.time_integral_b(lamt_series, state.grad_rho_series, state.plan.dt)
+    if prob.incompressible:
+        return ops.reg_plus_project(vtilde, bt, prob.beta, True)
+    return ops.reg_apply(vtilde, prob.beta) + bt
+
+
+def full_hessian_matvec(
+    vtilde: torch.Tensor, state: NewtonState, prob: Problem, ops: SpectralOps, interp=None
+) -> torch.Tensor:
+    """Full Newton Hessian action, eq. (5) with every term.
+
+    Beside the Gauss-Newton matvec it keeps the div(lam vt) source of the
+    incremental adjoint (5c) and the int lam grad rho~ dt term of bt, for
+    one stored rho~(t) series and one more coalesced transform pair: the
+    batched ``div(lam vt)`` and ``grad rho~(t)`` series share it.  At a
+    perfect match (lam = 0) it is the Gauss-Newton matvec; away from the
+    solution it may be indefinite (paper §IV-A3).  Single subject only.
+    """
+    if vtilde.ndim == 5:
+        raise NotImplementedError(
+            "full Newton Hessian has no cohort path; use gauss_newton=True"
+        )
+    rho_t_series = semilag.transport_inc_state_series(
+        vtilde, state.grad_rho_series, state.plan, interp
+    )
+    lam_vt = state.lam_series[:, None] * vtilde[None]  # (n_t+1, 3, N..)
+    with ops.batch() as sb:
+        h_div = sb.div(lam_vt)  # (n_t+1, N..)
+        h_grad = sb.grad(rho_t_series)  # (3, n_t+1, N..)
+    lamt_series = semilag.transport_inc_adjoint_newton(
+        -rho_t_series[-1], state.lam_series, vtilde, state.plan, ops, interp,
+        div_lam_vt=h_div.get(),
+    )
+    bt = semilag.time_integral_b(lamt_series, state.grad_rho_series, state.plan.dt)
+    # the second term of bt: int lam(t) grad rho~(t) dt
+    grad_rho_t = torch.swapaxes(h_grad.get(), 0, 1)  # (n_t+1, 3, N..)
+    bt = bt + semilag.time_integral_b(state.lam_series, grad_rho_t, state.plan.dt)
     if prob.incompressible:
         return ops.reg_plus_project(vtilde, bt, prob.beta, True)
     return ops.reg_apply(vtilde, prob.beta) + bt

@@ -85,10 +85,8 @@ def transport_adjoint(lam1: torch.Tensor, plan: SLPlan, interp=None) -> torch.Te
 # incremental state equation (5a) (Alg. 2):
 #   d_t rho~ + v.grad rho~ = -v~ . grad rho(t),  rho~(0) = 0
 # --------------------------------------------------------------------------- #
-def transport_inc_state(
-    vtilde: torch.Tensor, grad_rho_series: torch.Tensor, plan: SLPlan, interp=None
-) -> torch.Tensor:
-    """Returns rho~(1) (only the final slice is needed for Gauss-Newton)."""
+def _inc_state_slices(vtilde, grad_rho_series, plan: SLPlan, interp):
+    """rho~(t_0), rho~(t_1), ..., rho~(t_{n_t}), one slice at a time."""
     at_fwd = _bind_fwd(plan, interp)
     dt = plan.dt
 
@@ -96,10 +94,21 @@ def transport_inc_state(
         return -torch.sum(vtilde * grad_rho_series[k], dim=-4)
 
     rt = torch.zeros_like(grad_rho_series[0][..., 0, :, :, :])
+    yield rt
     for k in range(plan.n_t):
         rt0X, f0X = at_fwd(torch.stack([rt, source(k)]))  # C=2 batched
         rt = rt0X + 0.5 * dt * (f0X + source(k + 1))
-    return rt
+        yield rt
+
+
+def transport_inc_state(
+    vtilde: torch.Tensor, grad_rho_series: torch.Tensor, plan: SLPlan, interp=None
+) -> torch.Tensor:
+    """Returns rho~(1) (only the final slice is needed for Gauss-Newton);
+    the earlier slices are dropped as the next one is formed."""
+    for rho1 in _inc_state_slices(vtilde, grad_rho_series, plan, interp):
+        pass
+    return rho1
 
 
 # --------------------------------------------------------------------------- #
@@ -107,6 +116,56 @@ def transport_inc_state(
 # --------------------------------------------------------------------------- #
 def transport_inc_adjoint(lam1: torch.Tensor, plan: SLPlan, interp=None) -> torch.Tensor:
     return transport_adjoint(lam1, plan, interp)
+
+
+# --------------------------------------------------------------------------- #
+# incremental adjoint, full Newton form (paper eq. (5c) with every term):
+#   -d_t lam~ - div(lam~ v + lam vt) = 0,  lam~(1) = -rho~(1)
+# In tau: d_tau lam~ + (-v).grad lam~ = lam~ div v + div(lam(t) vt).
+# --------------------------------------------------------------------------- #
+def transport_inc_adjoint_newton(
+    lam1: torch.Tensor,
+    lam_series: torch.Tensor,
+    vtilde: torch.Tensor,
+    plan: SLPlan,
+    spectral_ops,
+    interp=None,
+    div_lam_vt: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Returns lam~ at all t-slices (n_t+1, N..), t-order.  ``lam_series``
+    is lam(t_k) in t-order; ``div_lam_vt`` supplies div(lam(t_k) vt) for
+    every k (``objective.full_hessian_matvec`` coalesces its transform
+    with another), else it costs one batched transform pair here."""
+    at_adj = _bind_adj(plan, interp)
+    dt = plan.dt
+    n_t = plan.n_t
+    divv = plan.divv
+    if div_lam_vt is None:
+        div_lam_vt = spectral_ops.div(lam_series[:, None] * vtilde[None])
+
+    def source(lam_t, k):
+        f = div_lam_vt[k]
+        if divv is not None:
+            f = f + lam_t * divv
+        return f
+
+    series_tau = [lam1]
+    for j in range(n_t):
+        lamt = series_tau[-1]
+        k = n_t - j  # current t-index (tau_j = 1 - t)
+        lam0X, f0X = at_adj(torch.stack([lamt, source(lamt, k)]))  # C=2 batched
+        lam_star = lam0X + dt * f0X
+        f_star = source(lam_star, k - 1)
+        series_tau.append(lam0X + 0.5 * dt * (f0X + f_star))
+    return torch.stack(series_tau[::-1])  # tau-order -> t-order
+
+
+def transport_inc_state_series(
+    vtilde: torch.Tensor, grad_rho_series: torch.Tensor, plan: SLPlan, interp=None
+) -> torch.Tensor:
+    """``transport_inc_state`` returning every slice (n_t+1, N..): full
+    Newton needs grad rho~(t_k) for the second b~ term."""
+    return torch.stack(list(_inc_state_slices(vtilde, grad_rho_series, plan, interp)))
 
 
 # --------------------------------------------------------------------------- #

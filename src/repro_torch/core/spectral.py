@@ -190,11 +190,56 @@ class SpectralBatch:
             self.run()
 
     # -- coalesced operators (same semantics as the eager SpectralOps) -----
+    def grad(self, f: torch.Tensor) -> SpectralRef:
+        return self._job([f], self.ops._grad_spec, (3,) + tuple(f.shape[:-3]))
+
     def div(self, v: torch.Tensor) -> SpectralRef:
         return self._job([v], self.ops._div_spec, v.shape[:-4])
 
+    def laplacian(self, f: torch.Tensor) -> SpectralRef:
+        return self._job([f], lambda s: -self.ops.fft.ksq * s, f.shape[:-3])
+
+    def biharmonic(self, f: torch.Tensor) -> SpectralRef:
+        return self._job([f], lambda s: self.ops.fft.ksq**2 * s, f.shape[:-3])
+
+    def inv_laplacian(self, f: torch.Tensor) -> SpectralRef:
+        return self._job([f], lambda s: self.ops._inv_lap_scale() * s, f.shape[:-3])
+
+    def inv_biharmonic(self, f: torch.Tensor, zero_mode: float = 0.0) -> SpectralRef:
+        return self._job(
+            [f], lambda s: self.ops._inv_bihar_scale(zero_mode) * s, f.shape[:-3]
+        )
+
     def reg_apply(self, v: torch.Tensor, beta) -> SpectralRef:
         return self._job([v], lambda s: self.ops._reg_scale(beta) * s, v.shape[:-3])
+
+    def precond_apply(self, r: torch.Tensor, beta) -> SpectralRef:
+        return self._job([r], lambda s: self.ops._precond_scale(beta) * s, r.shape[:-3])
+
+    def leray(self, v: torch.Tensor) -> SpectralRef:
+        return self._job([v], self.ops._leray_spec, v.shape[:-3])
+
+    def precond_project(self, r: torch.Tensor, beta, incompressible: bool) -> SpectralRef:
+        def kfn(s):
+            s = self.ops._precond_scale(beta) * s
+            return self.ops._leray_spec(s) if incompressible else s
+
+        return self._job([r], kfn, r.shape[:-3])
+
+    def reg_plus_project(self, a: torch.Tensor, b: torch.Tensor, beta,
+                         incompressible: bool) -> SpectralRef:
+        """beta Lap^2 a + P b (P = I when not incompressible): 6 fields
+        forward, 3 back."""
+        def kfn(sa, sb):
+            if incompressible:
+                sb = self.ops._leray_spec(sb)
+            return self.ops._reg_scale(beta) * sa + sb
+
+        return self._job([a, b], kfn, a.shape[:-3])
+
+    def smooth(self, f: torch.Tensor, sigma=None) -> SpectralRef:
+        scale = self.ops._smooth_scale(sigma)
+        return self._job([f], lambda s: scale * s, f.shape[:-3])
 
     def reg_energy(self, v: torch.Tensor, beta) -> SpectralRef:
         """beta/2 ||Lap v||^2 as a spectrum-side Parseval reduction (joins no
@@ -204,20 +249,37 @@ class SpectralBatch:
         )
 
 
+def check_field_dtype(field_dtype, owner: str) -> None:
+    """The port stores every field in float32: ``field_dtype`` is accepted as
+    ``None`` or as any spelling of float32 (``"float32"``, ``torch.float32``,
+    ``numpy.float32``), the identity.  A narrower storage dtype raises: it is
+    ROADMAP Queue A item 12."""
+    if field_dtype is None:
+        return
+    name = str(field_dtype).removeprefix("torch.")
+    if not isinstance(field_dtype, (str, torch.dtype)):
+        try:
+            name = np.dtype(field_dtype).name
+        except TypeError:
+            pass
+    if name != "float32":
+        raise NotImplementedError(
+            f"{owner}(field_dtype={field_dtype!r}) is not ported (ROADMAP Queue A item 12)"
+        )
+
+
 class SpectralOps:
     """The paper's spectral operator toolbox on one device.
 
     ``device`` defaults to ``"cuda"`` and raises when CUDA is absent; the
     k-space multipliers live on that device.  ``field_dtype`` is accepted
-    only as ``None`` (float32 fields): a narrower storage dtype is ROADMAP
-    Queue A item 12.
+    only as ``None`` or float32, the port's field dtype
+    (``check_field_dtype``): a narrower storage dtype is ROADMAP Queue A
+    item 12.
     """
 
     def __init__(self, grid: Grid, device="cuda", field_dtype=None):
-        if field_dtype is not None:
-            raise NotImplementedError(
-                "SpectralOps(field_dtype=...) is not ported (ROADMAP Queue A item 12)"
-            )
+        check_field_dtype(field_dtype, "SpectralOps")
         self.grid = grid
         self.device = resolve_device(device)
         self.fft = LocalFFT(grid, self.device)
@@ -252,6 +314,14 @@ class SpectralOps:
         kdotv = sum(k * comp[i] for i, k in enumerate(kd))
         inv = torch.where(ksq > 0, 1.0 / torch.clamp(ksq, min=1e-30), 0.0)
         return torch.stack([comp[i] - kd[i] * inv * kdotv for i in range(3)], dim=-4)
+
+    def _inv_lap_scale(self) -> torch.Tensor:
+        ksq = self.fft.ksq
+        return torch.where(ksq > 0, -1.0 / torch.clamp(ksq, min=1e-30), 0.0)
+
+    def _inv_bihar_scale(self, zero_mode: float) -> torch.Tensor:
+        ksq = self.fft.ksq
+        return torch.where(ksq > 0, 1.0 / torch.clamp(ksq**2, min=1e-30), zero_mode)
 
     def _reg_scale(self, beta) -> torch.Tensor:
         """Diagonal of A = beta Lap^2."""
@@ -295,6 +365,17 @@ class SpectralOps:
 
     def laplacian(self, f: torch.Tensor) -> torch.Tensor:
         return self.inv_real(-self.fft.ksq * self.fwd_real(f))
+
+    def biharmonic(self, f: torch.Tensor) -> torch.Tensor:
+        return self.inv_real(self.fft.ksq**2 * self.fwd_real(f))
+
+    def inv_laplacian(self, f: torch.Tensor) -> torch.Tensor:
+        """Lap^{-1} with the zero mean mode mapped to zero."""
+        return self.inv_real(self._inv_lap_scale() * self.fwd_real(f))
+
+    def inv_biharmonic(self, f: torch.Tensor, zero_mode: float = 0.0) -> torch.Tensor:
+        """Lap^{-2}, the zero mean mode scaled by ``zero_mode``."""
+        return self.inv_real(self._inv_bihar_scale(zero_mode) * self.fwd_real(f))
 
     def leray(self, v: torch.Tensor) -> torch.Tensor:
         """Project a velocity onto the divergence-free subspace."""

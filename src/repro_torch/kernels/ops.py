@@ -115,3 +115,17 @@ class Interp:
 def make_interp(method: str = "auto") -> Interp:
     """Factory for the solver's ``interp=`` slots."""
     return Interp(method=method)
+
+
+def tricubic_points(field: torch.Tensor, coords: torch.Tensor, chunk: int | None = None):
+    """``field`` (N1,N2,N3) at arbitrary query points ``coords`` (3, *Q),
+    grid units: the plain version on any device (no kernel takes unbounded
+    query points); ``chunk`` bounds the working set."""
+    if chunk:
+        return ref.tricubic_points_chunked(field, coords, chunk)
+    return ref.tricubic_points(field, coords)
+
+
+def max_displacement(disp: torch.Tensor) -> torch.Tensor:
+    """max |disp| in grid units, the planner's halo requirement."""
+    return torch.max(torch.abs(disp))

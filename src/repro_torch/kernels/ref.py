@@ -183,6 +183,17 @@ def tricubic_points(field: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return _points(field[None], coords)[0]
 
 
+def tricubic_points_chunked(field: torch.Tensor, coords: torch.Tensor,
+                            chunk: int = 1 << 16) -> torch.Tensor:
+    """``tricubic_points`` over chunks of ``chunk`` query points, for a
+    bounded working set."""
+    qshape = coords.shape[1:]
+    q = coords.reshape(3, -1)
+    out = torch.cat([tricubic_points(field, q[:, lo:lo + chunk])
+                     for lo in range(0, q.shape[1], chunk)])
+    return out.reshape(qshape)
+
+
 def tricubic_displace(field: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
     """Evaluate ``field`` (N1,N2,N3) at ``x_i + disp_i``; disp (3, N1,N2,N3)."""
     return tricubic_displace_vec(field[None], disp)[0]
@@ -195,3 +206,8 @@ def tricubic_displace_vec(fields: torch.Tensor, disp: torch.Tensor) -> torch.Ten
     ct = torch.promote_types(disp.dtype, torch.float32)
     base = _home(shape3, fields.device).to(ct).reshape((3,) + shape3)
     return _points(fields, base + disp.to(ct))
+
+
+def spectral_scale(spec_re: torch.Tensor, spec_im: torch.Tensor, scale: torch.Tensor):
+    """Elementwise real scale of a complex spectrum held as two real planes."""
+    return spec_re * scale, spec_im * scale

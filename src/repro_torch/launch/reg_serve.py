@@ -5,9 +5,10 @@ bucket, with jobs streamed through its subject slots; counterpart of
     PYTHONPATH=src python -m repro_torch.launch.reg_serve --jobs 6 --slots 3 \\
         --size 16 --beta 1e-2 --max-newton 8 [--device cuda]
 
-* Jobs are bucketed by image shape.  Each bucket owns one
-  ``gn.make_cohort_step`` callable; the image stacks, the beta, the
-  per-subject forcing references and the active mask are its arguments, so
+* Jobs are bucketed by image shape (and retry attempt).  Each bucket runs
+  a ``gn.make_cohort_step`` callable, shared by the buckets whose configs
+  differ in ``beta`` alone; the image stacks, the beta, the per-subject
+  forcing references and the active mask are its arguments, so
   admissions and retirements call it with the same argument signature
   (``compiled_executables`` stays 1; ``gn.CohortStep``).
 * Each bucket runs an S-slot cohort: a subject that converges retires
@@ -18,11 +19,16 @@ bucket, with jobs streamed through its subject slots; counterpart of
 
 The slots share one beta per step, so a server config must not use
 ``beta_continuation``.  Every retirement carries a ``status`` read off the
-health guard (``repro_torch.resilience.health``).  Not ported (ROADMAP
-Queue A item 10): the retry ladder, checkpointed sessions and resume, and
-fault hooks (``serve_jobs(retry=, checkpoint=, resume=True, faults=)``,
-``CohortServer.snapshot``/``restore``); and the per-step collective counts
-of item 14 (``emit_step_collectives``).
+health guard (``repro_torch.resilience.health``).  ``serve_jobs`` also
+re-admits failed jobs under the degradation ladder
+(``retry=RetryPolicy(...)``; a beta-only rung rides the primary bucket's
+step), snapshots the whole session through
+``ckpt.manager.CheckpointManager`` (``checkpoint=dir``) and restarts a
+killed stream from its latest snapshot, re-serving only the unfinished
+jobs with their billing kept (``resume=True``).  ``CohortServer.hooks`` is
+the fault-injection surface (``repro_torch.resilience.faults``).  The
+per-step collective counts (``emit_step_collectives``) are ROADMAP Queue A
+item 14.
 """
 from __future__ import annotations
 
@@ -39,10 +45,11 @@ from repro_torch import telemetry
 from repro_torch.core import gauss_newton as gn
 from repro_torch.core.grid import Grid, make_grid
 from repro_torch.core.spectral import SpectralOps
+from repro_torch.device import resolve_device
 from repro_torch.resilience import health
+from repro_torch.resilience import policy as res_policy
 
 _FORCING_SENTINEL = 1e-30  # first iteration of a subject: eta = eta_max
-_ITEM10 = "is not ported (ROADMAP Queue A item 10)"
 
 
 @dataclasses.dataclass
@@ -119,8 +126,9 @@ class CohortServer:
         self._enqueued_at: dict[int, int] = {}  # id(job) -> iterations at admit
         self._admitted_at = np.zeros(S, np.int64)
         self._queue_wait = np.zeros(S, np.int64)
-        # called with this server at the top of every step(); the fault
-        # hooks that use it are not ported (item 10)
+        # called with this server at the top of every step(): the fault
+        # hooks of repro_torch.resilience.faults mutate slot state or abort
+        # the loop on the host; the cohort step is untouched
         self.hooks: list = []
 
     def admit(self, *jobs: RegJob) -> None:
@@ -271,63 +279,285 @@ class CohortServer:
             "CohortServer.emit_step_collectives is not ported (ROADMAP Queue A item 14)"
         )
 
-    def snapshot(self):
-        raise NotImplementedError(f"CohortServer.snapshot {_ITEM10}")
+    # ------------------------------------------------------------------ #
+    # checkpointed job streams: a snapshot carries the slot state and every
+    # queued job's images, so ``restore`` needs no access to the original
+    # job list (job ids must be JSON-serializable)
+    def snapshot(self) -> tuple[dict, dict]:
+        """(tree, meta) for ``CheckpointManager.save``: tensors in the tree,
+        JSON-able bookkeeping in the meta."""
+        zero_v = torch.zeros((3,) + self.grid.shape, dtype=self.grid.dtype)
+
+        def field(x):
+            return torch.as_tensor(x, dtype=self.grid.dtype)
+
+        tree = {
+            "v": self._v,
+            "rho_R": self._rho_R,
+            "rho_T": self._rho_T,
+            "queue_rho_R": [field(j.rho_R) for j in self.queue],
+            "queue_rho_T": [field(j.rho_T) for j in self.queue],
+            "queue_v0": [zero_v if j.v0 is None else field(j.v0) for j in self.queue],
+        }
+
+        def job_meta(job: RegJob) -> dict:
+            return {
+                "job_id": job.job_id,
+                "attempt": int(job.attempt),
+                "g0_ref": None if job.g0_ref is None else float(job.g0_ref),
+                "block": None if job.block is None else list(job.block),
+            }
+
+        meta = {
+            "iterations": int(self.iterations),
+            "refills": int(self.refills),
+            "admitted": int(self.admitted),
+            "slot_jobs": [
+                None if job is None else {
+                    **job_meta(job),
+                    "g_forcing": float(self._g_forcing[s]),
+                    "g0": float(self._g0[s]),
+                    "g0_preset": bool(self._g0_preset[s]),
+                    "newton": int(self._newton[s]),
+                    "cg": int(self._cg[s]),
+                    "rel": float(self._rel[s]),
+                    "admitted_at": int(self._admitted_at[s]),
+                    "queue_wait": int(self._queue_wait[s]),
+                }
+                for s, job in enumerate(self._jobs)
+            ],
+            "queue_jobs": [
+                {**job_meta(job), "has_v0": job.v0 is not None,
+                 "enqueued_at": int(self._enqueued_at.get(id(job), self.iterations))}
+                for job in self.queue
+            ],
+        }
+        return tree, meta
 
     @classmethod
-    def restore(cls, *args, **kwargs):
-        raise NotImplementedError(f"CohortServer.restore {_ITEM10}")
+    def restore(cls, grid: Grid, cfg: gn.GNConfig, tree: dict, meta: dict,
+                ops: SpectralOps | None = None, interp=None, step_fn=None,
+                device="cuda") -> "CohortServer":
+        """Rebuild a server mid-stream from a ``snapshot()`` pair: slot
+        iterates, per-slot billing meters and queued jobs resume exactly, on
+        the step's device."""
+        srv = cls(grid, cfg, slots=len(meta["slot_jobs"]), ops=ops, interp=interp,
+                  step_fn=step_fn, device=device)
+        dev, dt = srv.device, grid.dtype
+        srv._v = torch.as_tensor(tree["v"], dtype=dt).to(dev)
+        srv._rho_R = torch.as_tensor(tree["rho_R"], dtype=dt).to(dev)
+        srv._rho_T = torch.as_tensor(tree["rho_T"], dtype=dt).to(dev)
+        srv.iterations = int(meta["iterations"])
+        srv.refills = int(meta["refills"])
+        srv.admitted = int(meta["admitted"])
+        for s, sm in enumerate(meta["slot_jobs"]):
+            if sm is None:
+                continue
+            # copies: a later fill of the slot writes its images in place
+            srv._jobs[s] = RegJob(job_id=sm["job_id"], rho_R=srv._rho_R[s].clone(),
+                                  rho_T=srv._rho_T[s].clone(), v0=None, g0_ref=sm["g0_ref"],
+                                  block=None if sm["block"] is None else tuple(sm["block"]),
+                                  attempt=int(sm["attempt"]))
+            srv._g_forcing[s] = sm["g_forcing"]
+            srv._g0[s] = sm["g0"]
+            srv._g0_preset[s] = sm["g0_preset"]
+            srv._newton[s] = sm["newton"]
+            srv._cg[s] = sm["cg"]
+            srv._rel[s] = sm["rel"]
+            srv._admitted_at[s] = sm["admitted_at"]
+            srv._queue_wait[s] = sm["queue_wait"]
+        for q, qm in enumerate(meta["queue_jobs"]):
+            job = RegJob(
+                job_id=qm["job_id"],
+                rho_R=torch.as_tensor(tree["queue_rho_R"][q], dtype=dt).to(dev),
+                rho_T=torch.as_tensor(tree["queue_rho_T"][q], dtype=dt).to(dev),
+                v0=torch.as_tensor(tree["queue_v0"][q], dtype=dt).to(dev)
+                if qm["has_v0"] else None,
+                g0_ref=qm["g0_ref"],
+                block=None if qm["block"] is None else tuple(qm["block"]),
+                attempt=int(qm["attempt"]),
+            )
+            srv.queue.append(job)
+            srv._enqueued_at[id(job)] = int(qm["enqueued_at"])
+        return srv
+
+
+def _result_meta(res: JobResult) -> dict:
+    """The JSON-able fields of a JobResult (its ``v`` rides the tree)."""
+    return {
+        "job_id": res.job_id,
+        "newton_iters": int(res.newton_iters),
+        "hessian_matvecs": int(res.hessian_matvecs),
+        "fine_equiv_matvecs": float(res.fine_equiv_matvecs),
+        "rel_gnorm": float(res.rel_gnorm),
+        "converged": bool(res.converged),
+        "status": res.status,
+        "attempts": int(res.attempts),
+    }
 
 
 def serve_jobs(jobs: list[RegJob], cfg: gn.GNConfig, slots: int = 4,
                ops: SpectralOps | None = None, interp=None, verbose: bool = False,
-               retry=None, checkpoint: Any = None, resume: bool = False,
+               retry: res_policy.RetryPolicy | None = None, checkpoint: Any = None,
+               checkpoint_every: int = 5, resume: bool = False,
                faults: list | None = None, device="cuda") -> dict:
-    """Bucket ``jobs`` by image shape and drain every bucket, round-robin.
+    """Bucket ``jobs`` by (image shape, attempt) and drain every bucket,
+    round-robin.
 
-    Returns ``{"results": [JobResult...], "buckets": {shape: stats},
-    "compiled_executables": n}``, ``n`` summed over the buckets' steps.
-    ``retry``, ``checkpoint``, ``resume=True`` and ``faults`` raise
-    ``NotImplementedError`` (ROADMAP Queue A item 10).
+    Returns ``{"results": [JobResult...], "buckets": {key: stats},
+    "compiled_executables": n}``.  A bucket's key is the image shape for
+    the first attempt and ``shape + ("retry<k>",)`` for attempt k; ``n``
+    counts the argument signatures of the distinct cohort steps of the
+    session (``gn.CohortStep``), one step per (shape, ``static_key(cfg)``),
+    so 1 when every retry rode a beta-only rung.
+
+    * ``retry``: a ``RetryPolicy``; a job retiring with a status in
+      ``retry.retry_on`` is re-admitted under the ladder's config for its
+      next attempt, warm-started from its last iterate when that is finite.
+    * ``checkpoint``: a directory (or a ``CheckpointManager``) that takes a
+      snapshot of the session every ``checkpoint_every`` serve rounds and
+      at the end; with ``resume=True`` the latest snapshot is restored and
+      only the unfinished jobs are served (``jobs`` is ignored when a
+      snapshot exists: it carries every queued image and finished result).
+    * ``faults``: hooks attached to every server
+      (``repro_torch.resilience.faults``).
+
+    The servers live on ``ops``' device, else on ``device``.
     """
-    for name, given in (("retry", retry is not None), ("checkpoint", checkpoint is not None),
-                        ("resume", resume), ("faults", bool(faults))):
-        if given:
-            raise NotImplementedError(f"serve_jobs({name}=...) {_ITEM10}")
-    servers: dict[tuple, CohortServer] = {}
-    for job in jobs:
-        shape = tuple(job.rho_R.shape)
-        if shape not in servers:
-            servers[shape] = CohortServer(make_grid(shape), cfg, slots=slots, ops=ops,
-                                          interp=interp, device=device)
-        servers[shape].admit(job)
+    faults = list(faults or [])
+    dev = ops.device if ops is not None else resolve_device(device)
+    mgr = None
+    if checkpoint is not None:
+        from repro_torch.ckpt.manager import CheckpointManager
 
-    results: list[JobResult] = []
-    while any(srv.queue or srv.active.any() for srv in servers.values()):
+        mgr = checkpoint if isinstance(checkpoint, CheckpointManager) \
+            else CheckpointManager(checkpoint)
+
+    step_cache: dict = {}  # (shape, static_key(cfg)) -> one cohort step
+    servers: dict[tuple, CohortServer] = {}  # (shape, attempt) -> server
+    by_id: dict = {}  # job_id -> RegJob (its images, for a retry)
+    final: list[JobResult] = []  # one final result per job
+
+    def bucket(shape, attempt: int):
+        """(key, grid, cfg, shared step) of the bucket of ``attempt``."""
+        key = (tuple(shape), int(attempt))
+        grid = make_grid(key[0])
+        cfg_a = retry.degraded(cfg, key[1]) if retry is not None and key[1] > 1 else cfg
+        sk = (key[0], res_policy.static_key(cfg_a))
+        if sk not in step_cache:
+            step_cache[sk] = gn.make_cohort_step(grid, cfg_a, ops=ops, interp=interp,
+                                                 device=dev)
+        return key, grid, cfg_a, step_cache[sk]
+
+    def get_server(shape, attempt: int) -> CohortServer:
+        key, grid, cfg_a, step = bucket(shape, attempt)
+        if key not in servers:
+            srv = CohortServer(grid, cfg_a, slots=slots, ops=ops, interp=interp,
+                               step_fn=step, device=dev)
+            srv.hooks.extend(faults)
+            servers[key] = srv
+        return servers[key]
+
+    # ---- session bring-up: resume from the latest snapshot, or admit jobs
+    serve_round = 0
+    restored = False
+    if resume and mgr is not None and mgr.latest_step() is not None:
+        tree, meta = mgr.restore(device=dev)
+        serve_round = int(meta["step"])
+        for r_meta, r_v in zip(meta["results"], tree["results_v"]):
+            final.append(JobResult(v=r_v, **r_meta))
+        for label, bm in meta["buckets"].items():
+            key, grid, cfg_a, step = bucket(bm["shape"], bm["attempt"])
+            srv = CohortServer.restore(grid, cfg_a, tree["buckets"][label], bm, ops=ops,
+                                       interp=interp, step_fn=step, device=dev)
+            srv.hooks.extend(faults)
+            servers[key] = srv
         for srv in servers.values():
-            if not (srv.queue or srv.active.any()):
+            for j in list(srv.queue) + [x for x in srv._jobs if x is not None]:
+                by_id.setdefault(j.job_id, j)
+        restored = True
+        telemetry.emit(
+            telemetry.RecoveryEvent(
+                action="resume_from_checkpoint",
+                step=serve_round,
+                attrs={"completed": len(final),
+                       "unfinished": sum(len(s.queue) + int(s.active.sum())
+                                         for s in servers.values())},
+            ),
+            echo=verbose,
+        )
+        telemetry.counter("resilience.resumes")
+    if not restored:
+        for job in jobs:
+            by_id[job.job_id] = job
+            get_server(tuple(job.rho_R.shape), job.attempt).admit(job)
+
+    # ---- retirement: retry failed jobs through the ladder -----------------
+    def handle(res: JobResult) -> None:
+        if (retry is not None and res.status in retry.retry_on
+                and res.attempts < retry.max_attempts and res.job_id in by_id):
+            base = by_id[res.job_id]
+            warm = retry.warm_start and bool(torch.isfinite(res.v).all())
+            nxt = res.attempts + 1
+            rj = RegJob(job_id=res.job_id, rho_R=base.rho_R, rho_T=base.rho_T,
+                        v0=res.v if warm else base.v0, g0_ref=base.g0_ref, block=base.block,
+                        attempt=nxt)
+            by_id[res.job_id] = rj
+            get_server(tuple(base.rho_R.shape), nxt).admit(rj)
+            telemetry.emit(
+                telemetry.RecoveryEvent(action="retry_degraded", job_id=str(res.job_id),
+                                        attempts=nxt,
+                                        attrs={"status": res.status, "warm_start": warm}),
+                echo=verbose,
+            )
+            telemetry.counter("resilience.retries", status=res.status)
+            return
+        if res.status in health.FAILED_NAMES:
+            telemetry.counter("resilience.jobs_failed", status=res.status)
+        final.append(res)
+
+    def save_session() -> None:
+        tree: dict = {"buckets": {}, "results_v": [r.v for r in final]}
+        meta: dict = {"buckets": {}, "results": [_result_meta(r) for r in final]}
+        for (shape, attempt), srv in servers.items():
+            label = "x".join(map(str, shape)) + f"@a{attempt}"
+            tree["buckets"][label], m = srv.snapshot()
+            meta["buckets"][label] = {"shape": list(shape), "attempt": attempt, **m}
+        mgr.save(serve_round, tree, meta)
+
+    # ---- drain: round-robin over the buckets, periodic snapshots --------
+    def live(srv: CohortServer) -> bool:
+        return bool(srv.queue) or bool(srv.active.any())
+
+    while any(live(srv) for srv in servers.values()):
+        for key in list(servers):
+            srv = servers[key]
+            if not live(srv):
                 continue
             srv._echo = verbose
             try:
-                results.extend(srv.step())
+                for res in srv.step():
+                    handle(res)
             finally:
                 srv._echo = False
+        serve_round += 1
+        if mgr is not None and checkpoint_every and serve_round % checkpoint_every == 0:
+            save_session()
+    if mgr is not None:
+        save_session()
 
-    stats = {
-        shape: {
+    stats: dict = {}
+    steps: dict[int, int] = {}
+    for (shape, attempt), srv in servers.items():
+        stats[shape if attempt == 1 else shape + (f"retry{attempt}",)] = {
             "jobs": srv.admitted,
-            "attempt": 1,
+            "attempt": attempt,
             "cohort_iterations": srv.iterations,
             "refills": srv.refills,
             "compiled_executables": srv.compiled_executables(),
         }
-        for shape, srv in servers.items()
-    }
-    return {
-        "results": results,
-        "buckets": stats,
-        "compiled_executables": sum(s["compiled_executables"] for s in stats.values()),
-    }
+        steps[id(srv.step_fn)] = srv.compiled_executables()
+    return {"results": final, "buckets": stats, "compiled_executables": sum(steps.values())}
 
 
 def main(argv=None) -> None:

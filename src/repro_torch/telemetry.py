@@ -1,8 +1,9 @@
 """Minimal telemetry for the port: spans, counters, and the ``newton_iter``,
-``level_start``, ``level``, ``solve``, ``job`` and ``serve_step`` records
-of ``repro.telemetry``'s schema v1 (same field names, so
-``repro.analysis.trace_report`` reads the port's traces).  ``annotate``
-names a region in ``torch.profiler`` traces.
+``level_start``, ``level``, ``solve``, ``job``, ``serve_step``, ``fault``
+and ``recovery`` records of ``repro.telemetry``'s schema v1 (same field
+names, so ``repro.analysis.trace_report`` reads the port's traces), with
+the schema's check, ``validate_record``.  ``annotate`` names a region in
+``torch.profiler`` traces.
 
 Off by default: with no sink installed a span reads no clock and does not
 synchronise, and ``emit`` builds no record.  A sink is any object with a
@@ -190,6 +191,30 @@ class ServeStepEvent(Event):
 
 
 @dataclasses.dataclass
+class FaultEvent(Event):
+    """One injected fault (``repro_torch.resilience.faults``)."""
+
+    kind: ClassVar[str] = "fault"
+    fault: str  # "nan_injection" | "kill" | "halo_overflow" | "guard_trip"
+    target: str = ""  # job id, field or loop the fault hit
+    iteration: int | None = None
+    attrs: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class RecoveryEvent(Event):
+    """One recovery action: "retry_degraded" | "resume_from_checkpoint" |
+    "ckpt_fallback"."""
+
+    kind: ClassVar[str] = "recovery"
+    action: str
+    job_id: str | None = None
+    attempts: int | None = None  # the attempt the action admits or bills
+    step: int | None = None  # checkpoint step or serve round involved
+    attrs: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
 class CounterEvent(Event):
     kind: ClassVar[str] = "counter"
     name: str
@@ -212,6 +237,38 @@ class SolveEvent(Event):
     wall_s: float | None = None
 
 
+EVENT_KINDS = {
+    cls.kind: cls
+    for cls in (SpanEvent, NewtonIterEvent, LevelEvent, LevelStartEvent, JobEvent,
+                ServeStepEvent, CounterEvent, SolveEvent, FaultEvent, RecoveryEvent)
+}
+# the fields each kind must carry: those without a default
+_REQUIRED = {
+    kind: tuple(f.name for f in dataclasses.fields(cls)
+                if f.default is dataclasses.MISSING
+                and f.default_factory is dataclasses.MISSING)  # type: ignore[misc]
+    for kind, cls in EVENT_KINDS.items()
+}
+
+
+def validate_record(rec: Any) -> list[str]:
+    """Schema violations of one record, as ``repro.telemetry``'s
+    ``validate_record`` finds them (empty: valid): the version, a
+    timestamp, a known kind and its required fields."""
+    if not isinstance(rec, dict):
+        return [f"record is {type(rec).__name__}, not an object"]
+    errs: list[str] = []
+    if rec.get("v") != SCHEMA_VERSION:
+        errs.append(f"schema version {rec.get('v')!r} != {SCHEMA_VERSION}")
+    if not isinstance(rec.get("ts"), (int, float)):
+        errs.append(f"ts {rec.get('ts')!r} is not a timestamp")
+    kind = rec.get("kind")
+    if kind not in _REQUIRED:
+        return errs + [f"unknown kind {kind!r}"]
+    return errs + [f"{kind}: missing required field {name!r}"
+                   for name in _REQUIRED[kind] if name not in rec]
+
+
 def emit(event: Event, echo: bool = False) -> dict | None:
     """Send ``event`` to every sink; ``echo=True`` also prints the record."""
     if not _SINKS and not echo:
@@ -228,6 +285,11 @@ def annotate(name: str) -> torch.profiler.record_function:
     """Name a region in ``torch.profiler`` traces; usable as a context
     manager or a decorator.  Changes nothing that is computed."""
     return torch.profiler.record_function(name)
+
+
+def counters() -> dict[str, float]:
+    """A copy of the process-wide counter totals."""
+    return dict(_COUNTERS)
 
 
 def counter(name: str, value: float = 1.0, **attrs) -> float:

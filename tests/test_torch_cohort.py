@@ -479,21 +479,44 @@ def test_serve_jobs_one_bucket(images, solved):
     assert billed == {s: o["hessian_matvecs"] for s, o in enumerate(solved["singles"])}
 
 
-@pytest.mark.parametrize("kw", [{"retry": object()}, {"checkpoint": "ckpt"}, {"resume": True},
+@pytest.mark.parametrize("kw", [{"retry": "policy"}, {"checkpoint": "ckpt"}, {"resume": True},
                                 {"faults": [lambda srv: None]}])
-def test_serve_jobs_unported_modes_raise(images, kw):
+def test_serve_jobs_unported_modes_raise(images, solved, tmp_path, kw):
+    """The serving modes that raised until ROADMAP Queue A item 10 was
+    ported (``retry``, ``checkpoint``, ``resume``, ``faults``) now serve; on
+    a stream with no fault and no failure each leaves the results of the
+    plain server: every job its independent solve's billing, one step
+    signature (tests/test_torch_resilience.py holds them under faults)."""
+    from repro_torch.resilience import RetryPolicy
+
     rho_R, rho_T = images
-    with pytest.raises(NotImplementedError, match="item 10"):
-        reg_serve.serve_jobs(_jobs(rho_R, rho_T, tensor=True), CFG, slots=2, device="cpu",
-                             **kw)
+    if kw.get("retry") == "policy":
+        kw = {"retry": RetryPolicy()}
+    if "checkpoint" in kw:
+        kw = {"checkpoint": str(tmp_path / kw["checkpoint"]), "checkpoint_every": 2}
+    out = reg_serve.serve_jobs(_jobs(rho_R, rho_T, tensor=True), CFG, slots=2, device="cpu",
+                               **kw)
+    assert out["compiled_executables"] == 1
+    billed = {r.job_id: r.hessian_matvecs for r in out["results"]}
+    assert billed == {s: o["hessian_matvecs"] for s, o in enumerate(solved["singles"])}
+    assert all(r.attempts == 1 for r in out["results"])
 
 
 @pytest.mark.parametrize("call,item", [("snapshot", "item 10"), ("restore", "item 10"),
                                        ("emit_step_collectives", "item 14")])
 def test_server_unported_methods_raise(call, item):
+    """``emit_step_collectives`` still raises, citing item 14; ``snapshot``
+    and ``restore``, which raised until item 10 was ported, now round-trip
+    an idle server."""
     server = reg_serve.CohortServer(make_grid(8), CFG, slots=2, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(server, call)()
+    if item == "item 14":
+        with pytest.raises(NotImplementedError, match=item):
+            getattr(server, call)()
+        return
+    tree, meta = server.snapshot()
+    back = reg_serve.CohortServer.restore(make_grid(8), CFG, tree, meta, device="cpu")
+    assert back.slots == 2 and not back.queue and not back.active.any()
+    assert torch.equal(back._v, server._v)
 
 
 def test_reg_serve_cli_writes_a_trace_the_reference_validates(tmp_path):

@@ -14,7 +14,11 @@ cohort solve through them equals the plain one.  On smooth displacements,
 whose tiles the three tricubic kernels stage in shared memory, they agree
 with their plain versions bit for bit and stage as many tiles as the plain
 model ``tricubic.staged_tiles`` says; random displacements take the
-unstaged branch.  Whether a card is present is decided inside the ``cuda``
+unstaged branch.  A cohort launch with one subject poisoned by NaN or
++-inf raises nothing, writes nothing outside its output and leaves the
+other subjects bit for bit; a NaN injected into one served job leaves the
+others bit for bit; and a full Newton solve through the kernels equals the
+plain one.  Whether a card is present is decided inside the ``cuda``
 fixture, so every worker collects the same tests; without a card they
 skip.  Imports neither JAX nor the JAX package.
 """
@@ -26,7 +30,7 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "bench_torch"))
-from fmad_ab import smooth_disp  # noqa: E402
+from fmad_ab import poisoned_cohort_case, smooth_disp  # noqa: E402
 from repro_torch.core import gauss_newton as gn
 from repro_torch.core.registration import RegistrationConfig, register
 from repro_torch.data import synthetic
@@ -408,3 +412,74 @@ def test_multilevel_register_runs_through_kernels(cuda):
         h["cg_iters"] for h in ref_out["history"]
     ]
     assert float((out["v"] - ref_out["v"]).abs().max()) < 1e-4
+
+
+# --------------------------------------------------------------------------- #
+# a poisoned subject inside a cohort launch (the fault-tolerant server)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("shape", [(12, 20, 9), (40, 48, 36)])
+@pytest.mark.parametrize("where", ["disp", "fields"])
+@pytest.mark.parametrize("value", [float("nan"), float("inf"), float("-inf")],
+                         ids=["nan", "pinf", "ninf"])
+@pytest.mark.parametrize("name,c", [("tricubic_apply", 2), ("tricubic_displace_many", 3)])
+def test_poisoned_cohort_subject_is_isolated(cuda, name, c, value, where, shape):
+    """K1/K2 over 4 subjects, one of them with NaN or +-inf in every other
+    x1-plane of its displacement or fields: no CUDA error, nothing written
+    outside the output, the other subjects bit for bit their outputs
+    without the poison and alone, and the whole output the plain cohort
+    version's."""
+    from repro_torch.kernels import build
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    f = torch.randn((c, 4) + shape, generator=gen, device=cuda)
+    disp = torch.stack([smooth_disp(shape, 3.0, gen, cuda) for _ in range(4)])
+    case = poisoned_cohort_case(build.library(), name, f, disp, subject=1, value=value,
+                                where=where)
+    assert case == {"launch_ok": True, "guard_intact": True, "healthy_equal": True,
+                    "healthy_equal_without": True, "plain_equal": True}
+
+
+def test_full_newton_solve_through_kernels_equals_plain(cuda):
+    """``GNConfig(gauss_newton=False)`` at 32^3 under "auto" (the kernels)
+    and "ref" (no launch): the same counts, max|dv| 0."""
+    rho_R, rho_T, grid = synthetic.brain_like(32, device=cuda)
+    outs, launches = {}, {}
+    for method in ("auto", "ref"):
+        cfg = RegistrationConfig(solver=gn.GNConfig(gauss_newton=False, max_newton=4,
+                                                    interp_method=method))
+        tricubic.reset_launches()
+        outs[method] = register(rho_R, rho_T, cfg, grid=grid, device=cuda)
+        launches[method] = dict(tricubic.LAUNCHES)
+    assert launches["auto"]["tricubic_apply"] > 0
+    assert all(n == 0 for n in launches["ref"].values())
+    for key in ("cg_iters", "armijo_trials", "status"):
+        assert [h[key] for h in outs["auto"]["history"]] == [
+            h[key] for h in outs["ref"]["history"]], key
+    assert float((outs["auto"]["v"] - outs["ref"]["v"]).abs().max()) == 0.0
+
+
+def test_served_nan_injection_keeps_healthy_jobs_bit_exact(cuda):
+    """A NaN injected into one job's slot mid-serve at 16^3, through the
+    kernels: the job is retried and finishes, the others equal the
+    un-faulted run bit for bit, one step signature."""
+    from repro_torch.launch.reg_serve import RegJob, serve_jobs
+    from repro_torch.resilience import NaNInjector, RetryPolicy
+
+    probs = [synthetic.synthetic_problem(16, n_t=2, amplitude=a, device=cuda)
+             for a in (0.2, 0.6, 1.0, 1.4)]
+    cfg = gn.GNConfig(n_t=2, max_newton=8, max_cg=20)
+
+    def jobs():
+        return [RegJob(job_id=s, rho_R=p[0], rho_T=p[1]) for s, p in enumerate(probs)]
+
+    base = {r.job_id: r for r in serve_jobs(jobs(), cfg, slots=2, device=cuda)["results"]}
+    fault = NaNInjector(job_id=1, field="v", at_iteration=1)
+    out = serve_jobs(jobs(), cfg, slots=2, device=cuda, retry=RetryPolicy(), faults=[fault])
+    torch.cuda.synchronize()
+    res = {r.job_id: r for r in out["results"]}
+    assert fault.fired and res[1].attempts == 2 and torch.isfinite(res[1].v).all()
+    assert out["compiled_executables"] == 1
+    for s in (0, 2, 3):
+        assert torch.equal(res[s].v, base[s].v), s
+        assert (res[s].newton_iters, res[s].hessian_matvecs, res[s].status) == (
+            base[s].newton_iters, base[s].hessian_matvecs, base[s].status), s
